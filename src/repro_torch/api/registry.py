@@ -17,7 +17,8 @@ from ..core.types import UBISConfig
 ENGINES = ("ubis", "spfresh")
 _UBIS_KW = frozenset({
     "seed", "round_size", "bg_ops_per_round", "drain_per_tick",
-    "fused_tick", "device", "kmeans_init"})
+    "fused_tick", "device", "kmeans_init", "pq_retrain_every", "pq_init",
+    "pq_keys"})
 
 
 def make_index(engine: str, cfg: UBISConfig, seed_vectors, **kw):

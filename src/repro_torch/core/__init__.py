@@ -1,4 +1,4 @@
-"""UBIS core on PyTorch: the single-device float path."""
+"""UBIS core on PyTorch: the single-device float and quant planes."""
 from . import balance, build, metrics, search, update, version_manager
 from .driver import UBISDriver
 from .types import (BackgroundRound, IndexState, RoundResult, UBISConfig,

@@ -24,11 +24,12 @@ import torch
 
 from ..kernels import ops
 from ..kernels.ref import BIG
+from ..quant import pq
 from . import version_manager as vm
 from .types import (KIND_COMPACT, KIND_MERGE, KIND_NONE, KIND_SPLIT, NO_ID,
                     NO_SUCC, STATUS_DELETED, STATUS_MERGING, STATUS_NORMAL,
                     STATUS_SPLITTING, BackgroundRound, IndexState, UBISConfig,
-                    require_float_plane)
+                    require_untiered)
 from .update import (_flat, batched_append, cache_append, free_postings)
 from .version_manager import masked_add_, masked_set_
 
@@ -315,7 +316,7 @@ def background_round(state: IndexState, cfg: UBISConfig, kinds, pids):
     merge) in an earlier round.  Updates ``state`` in place; returns
     (state, BackgroundRound).  The JAX package's ``use_cache=False`` (the
     sharded plane) is not ported yet."""
-    require_float_plane(cfg)
+    require_untiered(cfg)
     dev = state.device
     B = kinds.shape[0]
     C, d = cfg.capacity, cfg.dim
@@ -451,6 +452,13 @@ def background_round(state: IndexState, cfg: UBISConfig, kinds, pids):
     flat = w_pid[:, None] * C + torch.arange(C, device=dev)[None, :]
     masked_set_(state.id_loc, w_rids.reshape(-1).clamp(0, cfg.max_ids - 1),
                 flat.reshape(-1).to(torch.int32), w_keep.reshape(-1))
+    if cfg.use_pq:
+        # every tile written this round re-encodes under the ACTIVE
+        # codebook: the lazy upgrade point of the versioned codebooks
+        cb = state.pq_codebooks[state.pq_active.long()]
+        stored = w_rows.to(state.vectors.dtype).float()
+        masked_set_(state.codes, w_pid, pq.encode_tiles(cb, stored), w_valid)
+        masked_set_(state.pq_posting_slot, w_pid, state.pq_active, w_valid)
 
     # ---- batched retirement: DELETED + successor installation ---------
     succ_b = torch.where(b_empty, -1, pb)

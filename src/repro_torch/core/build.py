@@ -4,17 +4,24 @@ Seeds the posting pool with k-means centroids over a sample and wires
 the centroid neighbourhood graph.  The vectors themselves are then
 streamed through the production insert path by the driver.
 
-The k-means initial indices are an argument: the JAX package draws them
-with ``jax.random``, which no torch generator reproduces, so the driver
-draws them from a ``torch.Generator`` and the parity tests pass the JAX
-draw in.  Scoring here uses the plain version (a dense matmul; TF32 is
-off package-wide), as the JAX package does with ``backend="ref"``.
+The k-means initial indices (and, with ``use_pq``, the generation-0
+codebook sample) are arguments: the JAX package draws them with
+``jax.random``, which no torch generator reproduces, so the driver draws
+them from a ``torch.Generator`` and the parity tests pass the JAX draw
+in.  The centroid k-means scores with the plain version (a dense matmul;
+TF32 is off package-wide), as the JAX package does with
+``backend="ref"``; the codebook fit runs ``kmeans_assign``, a kernel on
+the card, as the JAX package's ``init_codebooks(backend=cfg.use_pallas)``
+does on the TPU.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from ..kernels import ref
+from ..quant import pq
 from .types import IndexState, UBISConfig, empty_state
 from .update import alloc_postings
 
@@ -65,10 +72,13 @@ def initial_posting_count(cfg: UBISConfig, n: int) -> int:
 
 
 def initial_state(cfg: UBISConfig, seed_vectors: torch.Tensor,
-                  init_idx: torch.Tensor) -> IndexState:
+                  init_idx: torch.Tensor,
+                  pq_init_idx: Optional[torch.Tensor] = None) -> IndexState:
     """Empty index on ``seed_vectors.device`` seeded with centroids fit on
     (a sample of) the data.  ``init_idx``: the k-means initial indices
-    into the sample, ``initial_posting_count`` of them."""
+    into the sample, ``initial_posting_count`` of them.  With ``use_pq``,
+    ``pq_init_idx``: the ``pq_ksub`` sample rows that warm-start the
+    generation-0 codebooks, fit on the same sample."""
     n = seed_vectors.shape[0]
     k0 = initial_posting_count(cfg, n)
     sample = seed_vectors[:SAMPLE_CAP].to(torch.float32)
@@ -78,4 +88,10 @@ def initial_state(cfg: UBISConfig, seed_vectors: torch.Tensor,
     cents = kmeans(sample, k0, cfg.kmeans_iters, init_idx)
     state = empty_state(cfg, seed_vectors.device)
     state, _ = seed_postings(state, cfg, cents, k0)
+    if cfg.use_pq:
+        if pq_init_idx is None or pq_init_idx.shape != (cfg.pq_ksub,):
+            raise ValueError(f"pq_init_idx: expected ({cfg.pq_ksub},) "
+                             "sample rows with use_pq")
+        state.pq_codebooks[0] = pq.init_codebooks(
+            sample, cfg.pq_m, cfg.pq_ksub, cfg.kmeans_iters, pq_init_idx)
     return state

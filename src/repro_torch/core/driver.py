@@ -27,18 +27,20 @@ import torch
 
 from ..api.types import SearchResult, TickReport, UpdateResult
 from ..obs import Obs
+from ..quant import pq
 from . import balance, search as search_mod, update
 from . import version_manager as vm
 from .build import SAMPLE_CAP, initial_posting_count, initial_state
 from .types import (KIND_COMPACT, KIND_MERGE, KIND_SPLIT, STATUS_MERGING,
                     STATUS_SPLITTING, IndexState, UBISConfig,
-                    require_float_plane, state_memory_bytes)
+                    require_untiered, state_memory_bytes)
 
 KIND_CODES = {"split": KIND_SPLIT, "merge": KIND_MERGE,
               "compact": KIND_COMPACT}
 EXACT_CHUNK_FLOATS = 1 << 28  # exact(): score block per query chunk (1 GiB)
 INSERT_RETRIES = 2            # re-rounds for rejected jobs, a tick between
 GC_LAG = 16                   # versions a retired posting outlives for readers
+PQ_SEED_OFFSET = 0x517C0DE    # the quant plane's draws: seed + this
 
 
 def resolve_device(device=None) -> torch.device:
@@ -58,6 +60,16 @@ def draw_kmeans_init(cfg: UBISConfig, n_seed: int, seed: int) -> np.ndarray:
     g = torch.Generator().manual_seed(int(seed))
     k0 = initial_posting_count(cfg, n_seed)
     return torch.randperm(min(n_seed, SAMPLE_CAP), generator=g)[:k0].numpy()
+
+
+def draw_pq_init(cfg: UBISConfig, n_seed: int, seed: int) -> np.ndarray:
+    """The generation-0 codebook sample: ``pq_ksub`` rows of the seed
+    sample (distinct when it has that many), from a ``torch.Generator``."""
+    g = torch.Generator().manual_seed(int(seed) + PQ_SEED_OFFSET)
+    n = min(n_seed, SAMPLE_CAP)
+    if n >= cfg.pq_ksub:
+        return torch.randperm(n, generator=g)[:cfg.pq_ksub].numpy()
+    return torch.randint(0, n, (cfg.pq_ksub,), generator=g).numpy()
 
 
 def _pad_rows(t: torch.Tensor, pad: int, value) -> torch.Tensor:
@@ -82,16 +94,23 @@ class UBISDriver:
     """Streaming driver for one index instance (a ``StreamingIndex``).
 
     ``kmeans_init``: the k-means initial indices into the seed sample
-    (default: drawn from ``seed``).  ``fused_tick=True`` (device-side
-    candidate selection) belongs to a later slice and raises.
+    (default: drawn from ``seed``).  With ``cfg.use_pq``: ``pq_init``,
+    the generation-0 codebook sample rows (default: drawn from
+    ``seed``); ``pq_retrain_every``, the codebook re-train cadence in
+    ticks (0 = never); ``pq_keys``, an iterable of (M*C,) uniform draws
+    in [0, 1), one per re-train, that pick its sample (default: drawn
+    from a ``torch.Generator`` seeded from ``seed``).  ``fused_tick=True``
+    (device-side candidate selection) belongs to a later slice and
+    raises.
     """
 
     def __init__(self, cfg: UBISConfig, seed_vectors=None, *,
                  seed: int = 0, round_size: int = 1024,
                  bg_ops_per_round: int = 4, drain_per_tick: int = 256,
-                 fused_tick: bool = False,
-                 device=None, kmeans_init=None):
-        require_float_plane(cfg)
+                 fused_tick: bool = False, pq_retrain_every: int = 32,
+                 device=None, kmeans_init=None, pq_init=None,
+                 pq_keys=None):
+        require_untiered(cfg)
         if fused_tick:
             raise NotImplementedError(
                 "fused_tick=True (balance.mark_round) belongs to a later "
@@ -103,6 +122,7 @@ class UBISDriver:
         self.round_size = int(round_size)
         self.bg_ops = int(bg_ops_per_round)
         self.drain_n = int(drain_per_tick)
+        self.pq_retrain_every = int(pq_retrain_every)
         self.obs = Obs()
 
         seeds = torch.as_tensor(np.asarray(seed_vectors, np.float32),
@@ -110,7 +130,18 @@ class UBISDriver:
         if kmeans_init is None:
             kmeans_init = draw_kmeans_init(cfg, seeds.shape[0], seed)
         init = torch.as_tensor(np.array(kmeans_init), device=self.device)
-        self.state: IndexState = initial_state(cfg, seeds, init)
+        pq_idx = None
+        if cfg.use_pq:
+            if pq_init is None:
+                pq_init = draw_pq_init(cfg, seeds.shape[0], seed)
+            pq_idx = torch.as_tensor(np.array(pq_init), device=self.device)
+        self.state: IndexState = initial_state(cfg, seeds, init, pq_idx)
+        self._ticks = 0
+        self._pq_keys = None if pq_keys is None else iter(pq_keys)
+        self._pq_gen = None
+        if cfg.use_pq and pq_keys is None:
+            self._pq_gen = torch.Generator(device=self.device)
+            self._pq_gen.manual_seed(int(seed) + PQ_SEED_OFFSET)
         # ops marked SPLITTING/MERGING last tick, executed this tick
         self._marked: list[tuple[str, int]] = []
         self._marked_set: set[int] = set()
@@ -243,7 +274,10 @@ class UBISDriver:
         self.stats["queries"] += disp.queries.shape[0]
         self.stats["search_probed"] += int((probe >= 0).sum())
         self.stats["search_results"] += int((found >= 0).sum())
-        self.stats["search_exact_batches"] += 1
+        if self.cfg.use_pq:
+            self.stats["search_adc_batches"] += 1
+        else:
+            self.stats["search_exact_batches"] += 1
         if not self.cfg.is_ubis:
             self._note_spfresh_small(probe)
         return SearchResult(ids=found, scores=scores, seconds=dt)
@@ -254,22 +288,25 @@ class UBISDriver:
 
     def tick(self) -> TickReport:
         """One background round: execute marked ops, drain the cache,
-        detect + mark new candidates, GC."""
+        detect + mark new candidates, GC, and (quant plane) re-train the
+        PQ codebooks on cadence."""
         t0 = time.perf_counter()
         executed = self._execute_marked()
         self.stats["bg_exec_time"] += time.perf_counter() - t0
         drained = self._drain_cache() if self.cfg.is_ubis else 0
         marked = self._mark_candidates()
         reclaimed = self._gc()
+        retrained = self._pq_retrain()
         dt = time.perf_counter() - t0
         self.stats["bg_time"] += dt
         self.stats["bg_ops"] += executed
         self.stats["bg_gc"] += reclaimed
         self.stats["drained"] += drained
         self.obs.emit("tick", executed=executed, drained=drained,
-                      marked=marked, gc=reclaimed, seconds=round(dt, 6))
+                      marked=marked, gc=reclaimed, pq=retrained,
+                      seconds=round(dt, 6))
         return TickReport(executed=executed, drained=drained, marked=marked,
-                          gc=reclaimed, seconds=dt)
+                          gc=reclaimed, pq_retrained=retrained, seconds=dt)
 
     def flush(self, max_ticks: int = 200) -> int:
         """Tick until quiescent (no marked ops, no due candidates, cache
@@ -394,6 +431,28 @@ class UBISDriver:
         self.state, n = balance.gc_round(self.state, self.cfg,
                                          ver - GC_LAG, 64)
         return int(n)
+
+    def _pq_retrain(self) -> int:
+        """Versioned codebook re-train on tick cadence (quant plane)."""
+        if not self.cfg.use_pq or self.pq_retrain_every <= 0:
+            return 0
+        self._ticks += 1
+        if self._ticks % self.pq_retrain_every:
+            return 0
+        M, C, _ = self.state.vectors.shape
+        if self._pq_keys is not None:
+            keys = self._dev(np.array(next(self._pq_keys), np.float32))
+        else:
+            keys = torch.rand((M * C,), generator=self._pq_gen,
+                              device=self.device)
+        evict = (int(self.state.pq_active) + 1) % self.cfg.pq_versions
+        self.state = pq.retrain_round(self.state, self.cfg, keys)
+        self.stats["pq_retrains"] += 1
+        self.stats["pq_generation"] = int(
+            self.state.pq_slot_gen[self.state.pq_active.long()])
+        self.obs.emit("pq_retrain", reason="cadence", evicted_slot=evict,
+                      generation=int(self.stats["pq_generation"]))
+        return 1
 
     # ---- SPFresh strict-trigger bookkeeping ---------------------------
 

@@ -10,13 +10,19 @@ runs at a realistic size on the card:
 * ``id_loc`` tracks exactly the live ids, each at its slot (``pid*C + c``)
   or cache entry (``-2 - slot``);
 * the free stack holds distinct, unallocated postings and, with the
-  allocated ones, accounts for the whole pool.
+  allocated ones, accounts for the whole pool;
+* with ``use_pq``, the quant invariant of ``tests/test_pq.py``: for
+  every valid slot of every live posting, ``codes[p, :, c] ==
+  encode(codebooks[pq_posting_slot[p]], vectors[p, c])``.
 """
 from __future__ import annotations
 
 import torch
 
+from ..quant import pq
 from .types import STATUS_DELETED, IndexState, UBISConfig
+
+CODES_CHUNK = 4096     # postings re-encoded at a time by check_codes
 
 
 def _fail(why: str):
@@ -64,3 +70,22 @@ def check_invariants(state: IndexState, cfg: UBISConfig) -> None:
         _fail("free stack aliases a live posting")
     if top + int(alloc.sum()) != cfg.max_postings:
         _fail("free stack and allocated bitmap do not cover the pool")
+    if cfg.use_pq:
+        check_codes(state, cfg)
+
+
+def check_codes(state: IndexState, cfg: UBISConfig) -> None:
+    """The quant invariant: every valid slot of every live posting holds
+    the code of its float vector under the posting's codebook slot."""
+    live_p = state.allocated & ((state.rec_meta & 3) != STATUS_DELETED)
+    for s in range(cfg.pq_versions):
+        pids = torch.nonzero(live_p & (state.pq_posting_slot == s))[:, 0]
+        for off in range(0, pids.numel(), CODES_CHUNK):
+            p = pids[off:off + CODES_CHUNK]
+            want = pq.encode_tiles(state.pq_codebooks[s],
+                                   state.vectors[p].float())    # (b, m, C)
+            bad = (want != state.codes[p]) & state.slot_valid[p][:, None, :]
+            if bool(bad.any()):
+                first = int(p[torch.nonzero(bad.any(-1).any(-1))[0, 0]])
+                _fail(f"codes diverged from the float plane at posting "
+                      f"{first} (codebook slot {s})")

@@ -2,9 +2,11 @@
 
 Phase 1 scores every *visible* centroid (allocated, not DELETED, weight
 <= snapshot version) and keeps the top ``nprobe`` (``centroid_topk``).
-Phase 2 scans the probed posting tiles (``posting_scan_topk``) *and the
-vector cache* (``centroid_topk`` over the cache), then merges a global
-top-k with the stable top-k, so ties keep the reference's order.
+Phase 2 scans the probed posting tiles (``posting_scan_topk``; with
+``use_pq`` the ADC scan ``pq_scan_topk`` of their codes and the exact
+rerank ``rerank_topk`` of its best ``rerank_k``) *and the vector cache*
+(``centroid_topk`` over the cache), then merges a global top-k with the
+stable top-k, so ties keep the reference's order.
 """
 from __future__ import annotations
 
@@ -14,8 +16,9 @@ import torch
 
 from ..kernels import ops
 from ..kernels.ref import BIG, stable_topk
+from ..quant import pq
 from . import version_manager as vm
-from .types import IndexState, UBISConfig, require_float_plane
+from .types import IndexState, UBISConfig, require_untiered
 
 
 def search(state: IndexState, cfg: UBISConfig, queries: torch.Tensor,
@@ -25,18 +28,21 @@ def search(state: IndexState, cfg: UBISConfig, queries: torch.Tensor,
     Scores follow the kernel convention ``||v||^2 - 2 q.v``; add
     ``||q||^2`` for true squared distances.  ``probe`` feeds SPFresh's
     search-triggered merge rule."""
-    require_float_plane(cfg)
+    require_untiered(cfg)
     if nprobe is None:
         nprobe = cfg.nprobe
     queries = queries.to(torch.float32)
     vis = vm.visible(state.rec_meta, state.allocated, state.global_version)
     _, probe = ops.centroid_topk(queries, state.centroids, vis, k=nprobe)
 
-    C = state.vectors.shape[1]
-    kf = min(k, probe.shape[1] * C)
-    pscores, cand = ops.posting_scan_topk(
-        queries, state.vectors, state.slot_valid, vis, probe, k=kf)
-    pids = state.ids.reshape(-1)[cand.to(torch.int64)]
+    if cfg.use_pq:
+        pscores, pids = _pq_stage(state, cfg, queries, probe, vis, k)
+    else:
+        C = state.vectors.shape[1]
+        kf = min(k, probe.shape[1] * C)
+        pscores, cand = ops.posting_scan_topk(
+            queries, state.vectors, state.slot_valid, vis, probe, k=kf)
+        pids = state.ids.reshape(-1)[cand.to(torch.int64)]
 
     kc = min(k, cfg.cache_capacity)
     cscores, cpos = ops.centroid_topk(queries, state.cache_vecs,
@@ -51,6 +57,23 @@ def search(state: IndexState, cfg: UBISConfig, queries: torch.Tensor,
     found = torch.gather(all_ids, 1, idx)
     found = torch.where(scores < BIG / 2, found, -1)
     return found, scores, probe
+
+
+def _pq_stage(state: IndexState, cfg: UBISConfig, queries: torch.Tensor,
+              probe: torch.Tensor, vis: torch.Tensor, k: int):
+    """ADC scan + exact rerank.  Returns (scores (Q, kk), ids (Q, kk)) of
+    the reranked float candidates, kk = min(k, R), R = min(rerank_k,
+    P*C); ids are -1 where the score is BIG (fewer real candidates)."""
+    C = state.vectors.shape[1]
+    R = min(cfg.rerank_k, probe.shape[1] * C)
+    luts = pq.lookup_tables(state.pq_codebooks, queries)   # (Q, V, m, ksub)
+    adc, cand = ops.pq_scan_topk(luts, state.codes, state.pq_posting_slot,
+                                 state.slot_valid, vis, probe, k=R)
+    exact, cand_sel = ops.rerank_topk(queries, state.vectors,
+                                      state.tier_spilled, cand, adc,
+                                      k=min(k, R))
+    ids = state.ids.reshape(-1)[cand_sel.to(torch.int64)]
+    return exact, torch.where(exact < BIG / 2, ids, -1)
 
 
 def brute_force(state: IndexState, cfg: UBISConfig, queries: torch.Tensor,

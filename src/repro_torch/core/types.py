@@ -69,7 +69,7 @@ class UBISConfig:
     dtype: Any = torch.float32        # vector storage dtype
     mode: str = "ubis"                # "ubis" | "spfresh" (baseline semantics)
     shard_probe_cap: int = 0          # sharded plane (a later slice)
-    # --- product-quantization plane (a later slice) ----------------------
+    # --- product-quantization plane --------------------------------------
     use_pq: bool = False
     pq_m: int = 8
     pq_ksub: int = 256
@@ -115,14 +115,14 @@ class UBISConfig:
         return self.mode == "ubis"
 
 
-def require_float_plane(cfg: UBISConfig) -> None:
-    """This slice runs the float plane only; the quant plane and the
-    cold tier raise instead of being silently ignored."""
-    if cfg.use_pq:      # use_tier requires use_pq (see UBISConfig)
+def require_untiered(cfg: UBISConfig) -> None:
+    """The port runs the float and the quant plane; the cold tier raises
+    instead of being silently ignored."""
+    if cfg.use_tier:
         raise NotImplementedError(
-            "use_pq=True: the quant plane (pq_scan_topk, rerank_topk) is the "
-            "port's second slice, and the cold tier (use_tier) a later one; "
-            "neither is ported yet")
+            "use_tier=True: the cold tier (core/tier.py: spill, promote, the "
+            "host pool) is the port's next slice after the quant plane; it "
+            "is not ported yet")
 
 
 @dataclasses.dataclass
@@ -158,13 +158,13 @@ class IndexState:
     global_version: torch.Tensor  # () int64 monotone version counter
     # --- id -> flat location (pid * C + slot), -1 absent, -2-s cached -----
     id_loc: torch.Tensor         # (N,) int32
-    # --- product-quantization plane (unused by this slice) ----------------
+    # --- product-quantization plane (use_pq) -------------------------------
     codes: torch.Tensor          # (M, m, C) uint8
     pq_codebooks: torch.Tensor   # (V, m, ksub, dsub) f32
     pq_slot_gen: torch.Tensor    # (V,) int64
     pq_active: torch.Tensor      # () int32
     pq_posting_slot: torch.Tensor  # (M,) int32
-    # --- cold-tier residency (unused by this slice) ------------------------
+    # --- cold-tier residency (all False until the cold tier is ported) -----
     heat: torch.Tensor           # (M,) int64 touch counter
     tier_spilled: torch.Tensor   # (M,) bool
 

@@ -24,10 +24,11 @@ from __future__ import annotations
 import torch
 
 from ..kernels import ops
+from ..quant import pq
 from . import version_manager as vm
 from .types import (NO_ID, NO_SUCC, STATUS_DELETED, STATUS_MERGING,
                     STATUS_NORMAL, STATUS_SPLITTING, IndexState, RoundResult,
-                    UBISConfig, require_float_plane)
+                    UBISConfig, require_untiered)
 from .version_manager import masked_add_, masked_set_
 
 _EMPTY_SUCC = (NO_SUCC << 16) | NO_SUCC
@@ -143,7 +144,7 @@ def batched_append(state: IndexState, cfg: UBISConfig, vecs, ids, pids,
     """Append jobs to their target postings; winners are decided by
     group rank against the remaining tile capacity.  Returns
     (state, ok, flat) with ``flat = pid*C + slot`` (``M*C`` for losers)."""
-    require_float_plane(cfg)
+    require_untiered(cfg)
     C = cfg.capacity
     M = cfg.max_postings
     pids = pids.to(torch.int64)
@@ -159,6 +160,21 @@ def batched_append(state: IndexState, cfg: UBISConfig, vecs, ids, pids,
     masked_add_(state.lengths, pids, 1, ok)
     masked_set_(state.id_loc, ids.to(torch.int64).clamp(0, cfg.max_ids - 1),
                 flat.to(torch.int32), ok)
+    if cfg.use_pq:
+        # every float write carries its code, encoded under the TARGET
+        # posting's codebook slot (encoded under all V slots, selected
+        # per job), from the value as stored
+        J = pids.shape[0]
+        x = vecs.to(state.vectors.dtype).float()
+        codes_all = pq.encode_all_versions(state.pq_codebooks, x)  # (V,J,m)
+        tslot = state.pq_posting_slot[safe_pid].long().clamp(
+            0, cfg.pq_versions - 1)
+        code_j = codes_all[tslot, torch.arange(J, device=x.device)]  # (J,m)
+        m = code_j.shape[1]
+        cidx = ((safe_pid[:, None] * m + torch.arange(m, device=x.device))
+                * C + slot.clamp(max=C - 1)[:, None])              # (J, m)
+        masked_set_(state.codes.view(-1), cidx.reshape(-1),
+                    code_j.reshape(-1), ok.repeat_interleave(m))
     return state, ok, torch.where(ok, flat, M * C)
 
 
@@ -206,7 +222,7 @@ def insert_round(state: IndexState, cfg: UBISConfig, vecs, ids, valid,
     used by cache drains (the path that exercises the paper's
     DELETED-branch pointer chasing).  Returns (state, RoundResult,
     touched (M,) bool)."""
-    require_float_plane(cfg)
+    require_untiered(cfg)
     M = cfg.max_postings
     status = vm.unpack_status(state.rec_meta)
     insertable = (state.allocated & (status != STATUS_DELETED)

@@ -158,3 +158,113 @@ extern "C" int centroid_topk(const float* q, const float* c,
                                                 k, out_s, out_i);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// Wide path, 32 < k <= TOPK_BLOCK_MAX_K: one block per (chunk, query).
+// Each warp scores 32 centroids per round (lanes over the feature axis, one
+// warp reduction per centroid; lane j keeps the j-th score), and the block
+// keeps its chunk's top-k in shared memory (BlockTopK).  A second kernel
+// merges the chunks' lists per query the same way.  The centroid table is
+// read once per query (from L2 when it fits there): this path is not on
+// the search's main path (nprobe <= 32 there) and is kept simple.
+// ---------------------------------------------------------------------------
+
+#define CTW_THREADS 256
+
+__global__ void __launch_bounds__(CTW_THREADS)
+centroid_topk_wide_partial(const float* __restrict__ q,
+                           const float* __restrict__ c,
+                           const uint8_t* __restrict__ vis, int M, int d,
+                           int k, int chunk, int nchunks, int cap,
+                           float* __restrict__ part_s,
+                           int* __restrict__ part_i) {
+  extern __shared__ float smem[];
+  float* qsh = smem;                         // [d]
+  const int qq = blockIdx.y;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int t = threadIdx.x; t < d; t += blockDim.x)
+    qsh[t] = q[(size_t)qq * d + t];
+  BlockTopK top = block_topk_init(smem + d, cap, k);   // syncs: qsh ready
+  const int m_begin = blockIdx.x * chunk;
+  const int m_end = min(M, m_begin + chunk);
+  for (int mt = m_begin; mt < m_end; mt += CTW_THREADS) {
+    const int base = mt + warp * 32;
+    float mine = REPRO_BIG;
+    for (int j = 0; j < 32 && base + j < m_end; ++j) {   // warp-uniform
+      const float* row = c + (size_t)(base + j) * d;
+      float nrm = 0.f, dot = 0.f;
+      for (int t = lane; t < d; t += 32) {
+        const float cv = row[t];
+        nrm += cv * cv;
+        dot += qsh[t] * cv;
+      }
+      nrm = warp_sum(nrm);
+      dot = warp_sum(dot);
+      if (lane == j) mine = vis[base + j] ? nrm - 2.f * dot : REPRO_BIG;
+    }
+    block_topk_push(top, base + lane < m_end, mine, base + lane);
+  }
+  block_topk_finish(top);
+  for (int e = threadIdx.x; e < k; e += blockDim.x) {
+    const size_t o = ((size_t)qq * nchunks + blockIdx.x) * k + e;
+    part_s[o] = top.s[e];
+    part_i[o] = top.i[e];
+  }
+}
+
+// One block per query: the top-k of its nparts partial lists (empty
+// entries skipped; the lists hold disjoint keys).
+__global__ void __launch_bounds__(CTW_THREADS)
+topk_merge_parts_wide(const float* __restrict__ part_s,
+                      const int* __restrict__ part_i, int nparts, int k,
+                      int cap, float* __restrict__ out_s,
+                      int* __restrict__ out_i) {
+  extern __shared__ float smem[];
+  const int qq = blockIdx.x;
+  BlockTopK top = block_topk_init(smem, cap, k);
+  const int total = nparts * k;
+  for (int base = 0; base < total; base += blockDim.x) {
+    const int e = base + threadIdx.x;
+    const bool in = e < total;
+    const float s = in ? part_s[(size_t)qq * total + e] : CUDART_INF_F;
+    const int i = in ? part_i[(size_t)qq * total + e] : INT_MAX;
+    block_topk_push(top, in && i != INT_MAX, s, i);
+  }
+  block_topk_finish(top);
+  for (int e = threadIdx.x; e < k; e += blockDim.x) {
+    out_s[(size_t)qq * k + e] = top.s[e];
+    out_i[(size_t)qq * k + e] = top.i[e];
+  }
+}
+
+static int set_smem(const void* fn, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// As centroid_topk, for 1 <= k <= min(TOPK_BLOCK_MAX_K, M); Q <= 65535.
+// part_s/part_i: (Q, nchunks, k); ``chunk`` * nchunks >= M.
+extern "C" int centroid_topk_wide(const float* q, const float* c,
+                                  const uint8_t* vis, int Q, int M, int d,
+                                  int k, int chunk, int nchunks,
+                                  float* part_s, int* part_i, float* out_s,
+                                  int* out_i, void* stream) {
+  if (k < 1 || k > TOPK_BLOCK_MAX_K) return (int)cudaErrorInvalidValue;
+  const int cap = block_topk_cap(k, CTW_THREADS, 1024);
+  const size_t smem1 = sizeof(float) * d + block_topk_bytes(cap);
+  const size_t smem2 = block_topk_bytes(cap);
+  int err = set_smem((const void*)centroid_topk_wide_partial, smem1);
+  if (err) return err;
+  err = set_smem((const void*)topk_merge_parts_wide, smem2);
+  if (err) return err;
+  cudaStream_t st = (cudaStream_t)stream;
+  centroid_topk_wide_partial<<<dim3(nchunks, Q), CTW_THREADS, smem1, st>>>(
+      q, c, vis, M, d, k, chunk, nchunks, cap, part_s, part_i);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  topk_merge_parts_wide<<<Q, CTW_THREADS, smem2, st>>>(
+      part_s, part_i, nchunks, k, cap, out_s, out_i);
+  return (int)cudaGetLastError();
+}

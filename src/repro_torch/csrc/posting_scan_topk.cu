@@ -28,12 +28,6 @@
 #define PS_WARPS 8
 #define PS_UNROLL 4
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(REPRO_FULL_MASK, v, o);
-  return v;
-}
-
 __global__ void __launch_bounds__(PS_WARPS * 32)
 posting_scan_topk_kernel(const float* __restrict__ q,
                          const float* __restrict__ vec,
@@ -130,5 +124,91 @@ extern "C" int posting_scan_topk(const float* q, const float* vec,
   }
   posting_scan_topk_kernel<<<Q, PS_WARPS * 32, smem, (cudaStream_t)stream>>>(
       q, vec, valid, qp_ok, probe, M, C, d, P, k, out_s, out_i);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Wide path, 32 < k <= TOPK_BLOCK_MAX_K (and any P): one block per query.
+// The probed slots are taken in their flattened (P, C) order, 256 per round:
+// warp w scores positions round*256 + w*32 + j, j = 0..31, with the same
+// per-row arithmetic as the warp path (so both paths give the same scores),
+// and lane j keeps position j's score.  The block's top-k lives in shared
+// memory (BlockTopK), keyed by position; ids are mapped at write-out.
+// ---------------------------------------------------------------------------
+
+#define PSW_THREADS 256
+
+__global__ void __launch_bounds__(PSW_THREADS)
+posting_scan_topk_wide_kernel(const float* __restrict__ q,
+                              const float* __restrict__ vec,
+                              const uint8_t* __restrict__ valid,
+                              const int* __restrict__ qp_ok,
+                              const int* __restrict__ probe, int M, int C,
+                              int d, int P, int k, int cap,
+                              float* __restrict__ out_s,
+                              int* __restrict__ out_i) {
+  extern __shared__ float smem[];
+  float* qsh = smem;                         // [d]
+  const int qq = blockIdx.x;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int t = threadIdx.x; t < d; t += blockDim.x)
+    qsh[t] = q[(size_t)qq * d + t];
+  BlockTopK top = block_topk_init(smem + d, cap, k);   // syncs: qsh ready
+  const int total = P * C;
+  const int* prow = probe + (size_t)qq * P;
+  for (int r0 = 0; r0 < total; r0 += PSW_THREADS) {
+    const int base = r0 + warp * 32;
+    float mine = REPRO_BIG;
+    for (int j = 0; j < 32 && base + j < total; ++j) {   // warp-uniform
+      const int pos = base + j;
+      const int p = pos / C;
+      const int cc = pos - p * C;
+      const int pid = min(max(prow[p], 0), M - 1);
+      const float* row = vec + ((size_t)pid * C + cc) * d;
+      float vn = 0.f, dot = 0.f;
+      for (int t = lane; t < d; t += 32) {
+        const float v = row[t];
+        vn += v * v;
+        dot += qsh[t] * v;
+      }
+      vn = warp_sum(vn);
+      dot = warp_sum(dot);
+      if (lane == j) {
+        const bool ok = qp_ok[(size_t)qq * P + p] != 0 &&
+                        valid[(size_t)pid * C + cc];
+        mine = ok ? vn - 2.f * dot : REPRO_BIG;
+      }
+    }
+    block_topk_push(top, base + lane < total, mine, base + lane);
+  }
+  block_topk_finish(top);
+  for (int e = threadIdx.x; e < k; e += blockDim.x) {
+    const int li = top.i[e];
+    const int p = li / C;
+    out_s[(size_t)qq * k + e] = top.s[e];
+    out_i[(size_t)qq * k + e] = prow[p] * C + (li - p * C);
+  }
+}
+
+// As posting_scan_topk, for 1 <= k <= min(TOPK_BLOCK_MAX_K, P*C).
+extern "C" int posting_scan_topk_wide(const float* q, const float* vec,
+                                      const uint8_t* valid, const int* qp_ok,
+                                      const int* probe, int Q, int M, int C,
+                                      int d, int P, int k, float* out_s,
+                                      int* out_i, void* stream) {
+  if (k < 1 || k > TOPK_BLOCK_MAX_K) return (int)cudaErrorInvalidValue;
+  if (Q <= 0) return (int)cudaGetLastError();
+  const int cap = block_topk_cap(k, PSW_THREADS, 1024);
+  const size_t smem = sizeof(float) * d + block_topk_bytes(cap);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        posting_scan_topk_wide_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  posting_scan_topk_wide_kernel<<<Q, PSW_THREADS, smem,
+                                  (cudaStream_t)stream>>>(
+      q, vec, valid, qp_ok, probe, M, C, d, P, k, cap, out_s, out_i);
   return (int)cudaGetLastError();
 }

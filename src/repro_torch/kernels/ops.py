@@ -20,8 +20,11 @@ import torch
 
 from . import centroid_score as _cs
 from . import centroid_topk as _ct
+from . import kmeans_assign as _ka
 from . import posting_scan as _ps
+from . import pq_scan as _pq
 from . import ref
+from . import rerank as _rr
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -93,6 +96,71 @@ def posting_scan_topk(q: torch.Tensor, vectors: torch.Tensor,
     return ref.posting_scan_topk(q, vectors, valid, qp_ok, probe, k)
 
 
+def kmeans_assign(points: torch.Tensor, centroids: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None):
+    """(N, d), (K, d)[, (N,) bool] -> (assign (N,) int32, best (N,) f32):
+    the nearest centroid, ties lowest index first; masked points get -1
+    and BIG.  Batched: points (Bp, N, d) and centroids (B, K, d) with
+    ``B % Bp == 0`` give (B, N) each, batch b scoring ``points[b % Bp]``
+    (one launch for every PQ subspace and codebook version)."""
+    flat = points.dim() == 2
+    if flat:
+        points, centroids = points[None], centroids[None]
+    if _on_card(points):
+        if points.dtype != torch.float32 or points.stride(-1) != 1:
+            points = points.float().contiguous()
+        a, b = _ka.kmeans_assign(points, _f32(centroids),
+                                 None if mask is None else mask.contiguous())
+    else:
+        a, b = ref.kmeans_assign(points, centroids, mask)
+    return (a[0], b[0]) if flat else (a, b)
+
+
+def pq_scan_topk(luts: torch.Tensor, codes: torch.Tensor,
+                 posting_slot: torch.Tensor, slot_valid: torch.Tensor,
+                 vis: torch.Tensor, probe: torch.Tensor, *, k: int,
+                 qp_ok: Optional[torch.Tensor] = None):
+    """Fused ADC scan + top-k (quant-plane phase 2).  luts (Q, V, m,
+    ksub); codes (M, m, C) uint8; posting_slot (M,); slot_valid (M, C)
+    bool; vis (M,) bool; probe (Q, P); optional per-(query, probe) mask
+    qp_ok.  Returns (scores (Q, k) ascending, cand (Q, k) int32 flat slot
+    index ``probe*C + c``); masked candidates carry BIG."""
+    Q, V = luts.shape[:2]
+    C = codes.shape[2]
+    P = probe.shape[1]
+    if not 0 < k <= P * C:
+        raise ValueError(f"pq_scan_topk: k={k} outside [1, P*C]")
+    slot = posting_slot.to(torch.int32).clamp(0, V - 1)
+    valid = slot_valid & vis[:, None]
+    if qp_ok is None:
+        qp_ok = torch.ones((Q, P), dtype=torch.int32, device=luts.device)
+    qp_ok = qp_ok.to(torch.int32)
+    if _on_card(luts):
+        return _pq.pq_scan_topk(
+            _f32(luts), codes.contiguous(), slot.contiguous(),
+            valid.contiguous(), qp_ok.contiguous(),
+            probe.to(torch.int32).contiguous(), k)
+    return ref.pq_scan_topk(luts, codes, slot, valid, qp_ok, probe, k)
+
+
+def rerank_topk(q: torch.Tensor, vectors: torch.Tensor,
+                tier_spilled: torch.Tensor, cand: torch.Tensor,
+                adc: torch.Tensor, *, k: int):
+    """Fused exact rerank of the ADC survivors: q (Q, d); vectors (M, C,
+    d); tier_spilled (M,) bool; cand (Q, R) flat slot ids; adc (Q, R)
+    their ADC scores.  Returns (scores (Q, k) ascending, cand (Q, k)
+    int32), ties lowest ADC rank first."""
+    R = cand.shape[1]
+    if not 0 < k <= R:
+        raise ValueError(f"rerank_topk: k={k} outside [1, R={R}]")
+    if _on_card(q):
+        return _rr.rerank_topk(_f32(q), _f32(vectors),
+                               tier_spilled.contiguous(),
+                               cand.to(torch.int32).contiguous(), _f32(adc),
+                               k)
+    return ref.rerank_topk(q, vectors, tier_spilled, cand, adc, k)
+
+
 # ---------------------------------------------------------------------------
 # launch accounting
 # ---------------------------------------------------------------------------
@@ -104,6 +172,9 @@ KERNELS = {
     "posting_scan": (_ps, "launches", _ps.SOURCE, _ps.REPLACES),
     "posting_scan_topk": (_ps, "launches_topk", _ps.SOURCE_TOPK,
                           _ps.REPLACES_TOPK),
+    "pq_scan_topk": (_pq, "launches", _pq.SOURCE, _pq.REPLACES),
+    "rerank_topk": (_rr, "launches", _rr.SOURCE, _rr.REPLACES),
+    "kmeans_assign": (_ka, "launches", _ka.SOURCE, _ka.REPLACES),
 }
 
 

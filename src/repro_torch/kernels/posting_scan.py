@@ -30,7 +30,8 @@ SOURCE = "src/repro_torch/csrc/masked_score.cu"
 REPLACES = "src/repro/kernels/posting_scan.py:57"
 SOURCE_TOPK = "src/repro_torch/csrc/posting_scan_topk.cu"
 REPLACES_TOPK = "src/repro/kernels/posting_scan.py:208"
-MAX_K = 32
+WARP_K = 32           # warp path: one list entry per lane
+MAX_K = 1024          # block-wide path (csrc/topk_common.cuh)
 launches = 0
 launches_topk = 0
 
@@ -50,9 +51,8 @@ def posting_scan(q: torch.Tensor, tiles: torch.Tensor,
     return out
 
 
-def _lib_topk():
-    lib = _nvcc.load("posting_scan_topk")
-    fn = lib.posting_scan_topk
+def _lib_topk(name: str):
+    fn = getattr(_nvcc.load("posting_scan_topk"), name)
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
@@ -65,7 +65,7 @@ def posting_scan_topk(q: torch.Tensor, vectors: torch.Tensor,
     """Kernel wrapper: q (Q, d), vectors (M, C, d) fp32, valid (M, C)
     bool, qp_ok and probe (Q, P) int32 -> (scores (Q, k) ascending,
     cand (Q, k) int32 = probe*C + c); ties by position p*C + c.
-    Needs 1 <= k <= min(32, P*C)."""
+    Needs 1 <= k <= min(1024, P*C); k > 32 takes the block-wide path."""
     global launches_topk
     Q, d = q.shape
     M, C, _ = vectors.shape
@@ -78,17 +78,19 @@ def posting_scan_topk(q: torch.Tensor, vectors: torch.Tensor,
     _nvcc.require(probe, "probe", torch.int32, (Q, P), dev)
     if not 1 <= k <= min(MAX_K, P * C):
         raise ValueError(f"posting_scan_topk: k={k} outside "
-                         f"[1, min(32, P*C={P * C})]")
+                         f"[1, min({MAX_K}, P*C={P * C})]")
     if M * C >= 2 ** 31 or P * C >= 2 ** 31:
         raise ValueError("posting_scan_topk: pool exceeds int32 slot ids")
     out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
     if Q == 0:
         return out_s, out_i
-    err = _lib_topk()(q.data_ptr(), vectors.data_ptr(), valid.data_ptr(),
-                      qp_ok.data_ptr(), probe.data_ptr(), Q, M, C, d, P, k,
-                      out_s.data_ptr(), out_i.data_ptr(),
-                      _nvcc.stream_ptr(dev))
+    name = "posting_scan_topk_wide" if k > WARP_K else "posting_scan_topk"
+    err = _lib_topk(name)(q.data_ptr(), vectors.data_ptr(),
+                          valid.data_ptr(), qp_ok.data_ptr(),
+                          probe.data_ptr(), Q, M, C, d, P, k,
+                          out_s.data_ptr(), out_i.data_ptr(),
+                          _nvcc.stream_ptr(dev))
     _nvcc.check(err, "posting_scan_topk")
     launches_topk += 1
     return out_s, out_i

@@ -80,3 +80,82 @@ def posting_scan_topk(q: torch.Tensor, vectors: torch.Tensor,
                 + torch.arange(C, device=q.device)[None, None, :])
     cand = torch.gather(cand_all.reshape(Q, P * C), 1, pos)
     return top, cand.to(torch.int32)
+
+
+def kmeans_assign(points: torch.Tensor, centroids: torch.Tensor,
+                  mask: torch.Tensor | None = None):
+    """Nearest-centroid assignment, batched.
+
+    points (Bp, N, d); centroids (B, K, d) with ``B % Bp == 0``: batch b
+    scores ``points[b % Bp]`` against ``centroids[b]``.  Returns (assign
+    (B, N) int32, best (B, N) fp32), the lowest index winning ties;
+    points masked out by ``mask`` (N,) get -1 and BIG."""
+    B, Bp = centroids.shape[0], points.shape[0]
+    p = points.float().repeat(B // Bp, 1, 1)
+    c = centroids.float()
+    cn = torch.sum(c * c, dim=-1)
+    s = cn[:, None, :] - 2.0 * torch.bmm(p, c.transpose(1, 2))
+    assign = torch.argmin(s, dim=-1)          # the first minimum
+    best = torch.gather(s, -1, assign[..., None])[..., 0]
+    assign = assign.to(torch.int32)
+    if mask is not None:
+        assign = torch.where(mask[None, :], assign, -1)
+        best = torch.where(mask[None, :], best, BIG)
+    return assign, best
+
+
+def pq_scan_topk(luts: torch.Tensor, codes: torch.Tensor,
+                 slot: torch.Tensor, valid: torch.Tensor,
+                 qp_ok: torch.Tensor, probe: torch.Tensor, k: int):
+    """Masked ADC probe scan + top-k (quant-plane phase 2).
+
+    luts (Q, V, m, ksub); codes (M, m, C) uint8; slot (M,) codebook slot
+    of each posting, in [0, V); valid (M, C) bool (slot validity and
+    posting visibility combined); qp_ok (Q, P); probe (Q, P).  Returns
+    (scores (Q, k) ascending, cand (Q, k) int32 flat slot index
+    ``probe*C + c``); masked candidates carry BIG, ties break by position
+    in the flattened (P, C) order.  The m lookups are summed in order
+    j = 0..m-1, as the CUDA kernel sums them."""
+    Q, V, m, ksub = luts.shape
+    probe = probe.long()
+    C = codes.shape[2]
+    P = probe.shape[1]
+    codes_g = codes[probe].long()                          # (Q, P, m, C)
+    base = slot.long()[probe] * (m * ksub)                 # (Q, P)
+    flat = luts.float().reshape(Q, V * m * ksub)
+    raw = None
+    for j in range(m):
+        idx = (base[:, :, None] + j * ksub + codes_g[:, :, j, :])
+        picked = torch.gather(flat, 1, idx.reshape(Q, P * C))
+        raw = picked if raw is None else raw + picked
+    ok = valid[probe] & (qp_ok != 0)[:, :, None]
+    s = torch.where(ok.reshape(Q, P * C), raw, BIG)
+    top, pos = stable_topk(s, k)
+    cand_all = (probe[:, :, None] * C
+                + torch.arange(C, device=luts.device)[None, None, :])
+    cand = torch.gather(cand_all.reshape(Q, P * C), 1, pos)
+    return top, cand.to(torch.int32)
+
+
+def rerank_topk(q: torch.Tensor, vectors: torch.Tensor,
+                tier_spilled: torch.Tensor, cand: torch.Tensor,
+                adc: torch.Tensor, k: int):
+    """Exact rerank of the ADC stage's survivors (quant plane stage 2).
+
+    q (Q, d); vectors (M, C, d); tier_spilled (M,) bool; cand (Q, R)
+    flat slot ids from :func:`pq_scan_topk`; adc (Q, R) their ADC
+    scores.  Each candidate is rescored ``||v||^2 - 2 q.v`` from its
+    float row, except that a tier-spilled posting keeps its ADC score,
+    and an empty ADC slot (``adc >= BIG/2``) scores BIG.  Returns
+    (scores (Q, k) ascending, cand (Q, k) int32), ties lowest ADC rank
+    first."""
+    M, C, d = vectors.shape
+    cand = cand.long()
+    cv = vectors.reshape(M * C, d)[cand].float()           # (Q, R, d)
+    exact = (torch.sum(cv * cv, -1)
+             - 2.0 * torch.einsum("qd,qrd->qr", q.float(), cv))
+    adc = adc.float()
+    exact = torch.where(tier_spilled[cand // C], adc, exact)
+    exact = torch.where(adc < BIG / 2, exact, BIG)
+    top, pos = stable_topk(exact, k)
+    return top, torch.gather(cand, 1, pos).to(torch.int32)

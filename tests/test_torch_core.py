@@ -27,6 +27,7 @@ from repro.core.build import initial_state as j_initial_state
 from repro.core.types import KIND_COMPACT, KIND_MERGE, KIND_SPLIT
 from repro_torch import bridge
 from repro_torch.core import balance, search, update, version_manager as vm
+from repro_torch.core.build import initial_posting_count, initial_state
 from repro_torch.core.invariants import check_invariants
 from repro_torch.core.types import UBISConfig, empty_state
 
@@ -114,6 +115,32 @@ def test_bridge_round_trip_is_field_for_field_equal():
     for name in a:
         assert back[name].dtype == a[name].dtype, name
         np.testing.assert_array_equal(back[name], a[name], err_msg=name)
+
+
+def test_quant_initial_state_matches_jax():
+    """The use_pq branch of the build: generation-0 codebooks fit on the
+    seed sample from the JAX key's draw, injected; the bridged state's
+    quant fields (codes, codebooks, uint32 generations, slots) cross and
+    come back field for field.  Integer-valued seeds make every Lloyd sum
+    exact, so the codebooks are identical."""
+    jcfg, tcfg = cfgs(use_pq=True, pq_m=4, pq_ksub=16)
+    seeds = np.round(make_clustered(300, d=jcfg.dim, seed=1))
+    key = jax.random.key(0)
+    js = j_initial_state(jcfg, jnp.asarray(seeds), key=key)
+    k0 = initial_posting_count(tcfg, len(seeds))
+    init = jax.random.choice(key, len(seeds), (k0,), replace=False)
+    pq_init = jax.random.choice(jax.random.split(key)[1], len(seeds),
+                                (tcfg.pq_ksub,), replace=False)
+    ts = initial_state(tcfg, t(seeds), t(init), t(pq_init))
+    a = jax_np(js)
+    np.testing.assert_array_equal(ts.pq_codebooks.numpy(), a["pq_codebooks"])
+    back = bridge.state_to_numpy(bridge.state_from_numpy(a, tcfg, "cpu"))
+    for name in ("codes", "pq_codebooks", "pq_slot_gen", "pq_active",
+                 "pq_posting_slot"):
+        assert back[name].dtype == a[name].dtype, name
+        np.testing.assert_array_equal(back[name], a[name], err_msg=name)
+    with pytest.raises(ValueError, match="pq_init_idx"):
+        initial_state(tcfg, t(seeds), t(init))
 
 
 def test_bridge_rejects_mismatched_state():

@@ -80,3 +80,42 @@ def test_driver_stream_matches_jax(engine):
     td.load_snapshot(snap)
     np.testing.assert_array_equal(td.search(q, 10).ids, before)
     assert td.throughput()["tps"] > 0 and td.memory_bytes() > 0
+
+
+def test_quant_driver_recall_matches_jax_and_float():
+    """The quant plane on real-valued data, through both drivers with the
+    JAX draws injected: the port's ADC + rerank recall@10 against its own
+    exact oracle is within 0.02 of the JAX driver's (codes can differ
+    where two codebook centroids tie to the last bit) and within 0.05 of
+    the float-plane search on the same state (the bar of
+    tests/test_pq.py::test_pq_search_recall_close_to_float)."""
+    import dataclasses
+    from repro.core import brute_force
+    from repro_torch.core.search import search
+
+    cfg = dict(CFG, use_pq=True, pq_m=8, pq_ksub=64, rerank_k=96)
+    tcfg = UBISConfig(**cfg)
+    seeds = make_clustered(3000, d=16, seed=3)[:800]
+    k0 = initial_posting_count(tcfg, len(seeds))
+    key = jax.random.key(0)
+    init = np.asarray(jax.random.choice(key, len(seeds), (k0,),
+                                        replace=False))
+    pq_init = np.asarray(jax.random.choice(
+        jax.random.split(key)[1], len(seeds), (64,), replace=False))
+    jd = JDriver(JConfig(use_pallas="off", **cfg), seeds, **DRIVER_KW)
+    td = make_index("ubis", tcfg, seeds, device="cpu", kmeans_init=init,
+                    pq_init=pq_init, **DRIVER_KW)
+    stream(jd)
+    stream(td)
+    check_invariants(td.state, tcfg)
+    q = make_clustered(64, d=16, seed=11)
+    truth = td.exact(q, 10).ids
+    rec = metrics.recall_at_k(td.search(q, 10).ids, truth)
+    jtrue, _ = brute_force(jd.state, jd.cfg, jax.numpy.asarray(q), 10)
+    jrec = metrics.recall_at_k(jd.search(q, 10).ids, np.asarray(jtrue))
+    assert abs(rec - jrec) <= 0.02, (rec, jrec)
+    fcfg = dataclasses.replace(tcfg, use_pq=False)
+    found, _, _ = search(td.state, fcfg, torch.from_numpy(q), 10)
+    rec_f = metrics.recall_at_k(found.numpy(), truth)
+    assert rec >= rec_f - 0.05, (rec, rec_f)
+    assert td.stats["search_adc_batches"] == 1

@@ -5,8 +5,9 @@
 * No ``torch.topk`` anywhere in the port: its tie order is not the
   reference's lowest-index-first (``ref.stable_topk`` is the one top-k).
 * The entry points run on the card by default and raise without one
-  unless the caller asks for the CPU; the planes of later slices raise
-  ``NotImplementedError`` instead of being ignored.
+  unless the caller asks for the CPU; the planes of later slices (the
+  cold tier, the fused tick) raise ``NotImplementedError`` instead of
+  being ignored, and the quant plane (``use_pq``) runs.
 """
 import os
 import subprocess
@@ -45,6 +46,7 @@ for m in mods:
 import chip_smoke
 bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "repro"))
 assert not bad, bad
+assert "repro_torch.quant.pq" in mods, mods
 print(len(mods))
 """
 
@@ -55,7 +57,7 @@ def test_port_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", _GUARD], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.split()[-1]) >= 15      # every module was walked
+    assert int(out.stdout.split()[-1]) >= 20      # every module was walked
 
 
 def test_no_torch_topk_in_the_port():
@@ -81,10 +83,13 @@ def test_entry_points_raise_without_cuda():
     assert SPFreshDriver(cfg, seeds, device="cpu").cfg.mode == "spfresh"
 
 
+# The case ids are the ones these cases had when the quant plane still
+# raised; the first case now checks that it runs instead.
 @pytest.mark.parametrize("kw,what", [
-    (dict(use_pq=True, pq_m=4), "quant plane"),
-    (dict(use_pq=True, pq_m=4, use_tier=True), "quant plane"),
-    (dict(fused_tick=True), "fused_tick"),
+    pytest.param(dict(use_pq=True, pq_m=4), None, id="kw0-quant plane"),
+    pytest.param(dict(use_pq=True, pq_m=4, use_tier=True), "cold tier",
+                 id="kw1-quant plane"),
+    pytest.param(dict(fused_tick=True), "fused_tick", id="kw2-fused_tick"),
 ])
 def test_later_slices_raise_not_implemented(kw, what):
     kw = dict(kw)
@@ -92,6 +97,10 @@ def test_later_slices_raise_not_implemented(kw, what):
     cfg = UBISConfig(dim=8, max_postings=64, capacity=32, l_min=4, l_max=24,
                      cache_capacity=64, max_ids=1 << 10, **kw)
     seeds = np.random.default_rng(0).normal(size=(60, 8)).astype(np.float32)
+    if what is None:
+        drv = UBISDriver(cfg, seeds, device="cpu", fused_tick=fused)
+        assert drv.cfg.use_pq and drv.state.codes.shape == (64, 4, 32)
+        return
     with pytest.raises(NotImplementedError, match=what):
         UBISDriver(cfg, seeds, device="cpu", fused_tick=fused)
 

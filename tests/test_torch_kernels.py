@@ -10,9 +10,11 @@ the two frameworks sum the dot products in different orders, so fp32
 results differ in the last bits.  Integer-valued inputs make every sum
 exact, so there the scores match exactly too.
 
-The CUDA kernels themselves run only on a card: the ``cuda``-marked
-tests compare each kernel with its plain version and skip without one
-(``chip_smoke.py`` runs the same checks on the card).
+The quant plane's three kernels are held against the JAX package in
+tests/test_torch_pq.py.  The CUDA kernels themselves run only on a card:
+the ``cuda``-marked tests compare each of the seven kernels, and the
+block-wide top-k past k = 32, with its plain version and skip without
+one (``chip_smoke.py`` runs the same checks on the card).
 """
 import numpy as np
 import pytest
@@ -139,7 +141,17 @@ def test_cpu_tensors_take_the_plain_version():
     q, c = torch.randn(3, 8), torch.randn(10, 8)
     ops.centroid_score(q, c)
     ops.centroid_topk(q, c, k=2)
+    ops.centroid_topk(q, c, k=10)
     ops.posting_scan(q, c.reshape(2, 5, 8), torch.ones(2, 5, dtype=torch.bool))
+    ops.kmeans_assign(q, c)
+    luts = torch.randn(3, 2, 4, 16)
+    codes = torch.randint(0, 16, (2, 4, 5), dtype=torch.uint8)
+    ones = torch.ones(2, 5, dtype=torch.bool)
+    probe = torch.zeros(3, 2, dtype=torch.int32)
+    adc, cand = ops.pq_scan_topk(luts, codes, torch.zeros(2), ones,
+                                 ones[:, 0], probe, k=6)
+    ops.rerank_topk(q, c.reshape(2, 5, 8), ~ones[:, 0], cand, adc, k=3)
+    assert len(ops.launch_counts()) == 7
     assert set(ops.launch_counts().values()) == {0}
 
 
@@ -212,33 +224,162 @@ def test_card_posting_scan_topk_kernel(cuda_dev):
     assert torch.equal(gi, wi) and torch.equal(gs, ws)
 
 
+def _wide_inputs(dev, Q=37, M=300, G=40, C=33, d=100, P=8):
+    """Integer-valued inputs with P*C = 264 slots per query, so that k
+    and nprobe reach 192 (the quant path's rerank_k)."""
+    x = _card_inputs(dev, Q=Q, M=M, G=G, C=C, d=d, P=P)
+    x["qp_ok"] = torch.as_tensor(
+        (np.random.default_rng(6).random((Q, P)) < 0.9).astype(np.int32),
+        device=dev)
+    return x
+
+
 @pytest.mark.cuda
-def test_card_topk_kernels_refuse_k_wider_than_a_warp(cuda_dev):
-    """The top-k kernels keep one list entry per lane of a warp, so on the
-    card k > 32 (and so ``search`` with k or nprobe > 32) raises, while
-    the plain version on the CPU takes any k."""
+@pytest.mark.parametrize("k", [33, 64, 192, 264])
+def test_card_topk_kernels_answer_past_a_warp(cuda_dev, k):
+    """Past 32 the top-k kernels keep the list block-wide in shared
+    memory; ids, scores and tie order equal the plain version's (integer
+    data: exact), and search answers at k and nprobe past 32."""
     from repro_torch.api import make_index
     from repro_torch.core.types import UBISConfig
-    x = _card_inputs(cuda_dev)
+    x = _wide_inputs(cuda_dev)
     G = x["tiles"].shape[0]
     vis = torch.ones(G, dtype=torch.bool, device=cuda_dev)
-    with pytest.raises(ValueError, match="centroid_topk: k=33"):
-        ops.centroid_topk(x["q"], x["c"], x["vis"], k=33)
-    with pytest.raises(ValueError, match="posting_scan_topk: k=33"):
-        ops.posting_scan_topk(x["q"], x["tiles"], x["valid"], vis,
-                              x["probe"], k=33)
-    _, idx = ops.centroid_topk(x["q"].cpu(), x["c"].cpu(), x["vis"].cpu(),
-                               k=33)
-    assert idx.shape == (x["q"].shape[0], 33)
+    gs, gi = _counted("centroid_topk", lambda: ops.centroid_topk(
+        x["q"], x["c"], x["vis"], k=k))
+    ws, wi = ref.centroid_topk(x["q"], x["c"], x["vis"], k)
+    assert torch.equal(gi, wi) and torch.equal(gs, ws)
+    gs, gi = _counted("posting_scan_topk", lambda: ops.posting_scan_topk(
+        x["q"], x["tiles"], x["valid"], vis, x["probe"], k=k,
+        qp_ok=x["qp_ok"]))
+    ws, wi = ref.posting_scan_topk(x["q"], x["tiles"], x["valid"],
+                                   x["qp_ok"], x["probe"], k)
+    assert torch.equal(gi, wi) and torch.equal(gs, ws)
 
+    if k != 64:
+        return
     rng = np.random.default_rng(0)
     data = rng.normal(size=(600, 16)).astype(np.float32)
-    cfg = UBISConfig(dim=16, max_postings=64, capacity=32, l_min=4,
+    cfg = UBISConfig(dim=16, max_postings=128, capacity=32, l_min=4,
                      l_max=24, nprobe=8, cache_capacity=64, max_ids=1 << 10)
     drv = make_index("ubis", cfg, data[:200], device=cuda_dev)
     drv.insert(data, np.arange(len(data)))
-    assert drv.search(data[:4], 32).ids.shape == (4, 32)
-    with pytest.raises(ValueError, match="posting_scan_topk: k=33"):
-        drv.search(data[:4], 33)
-    with pytest.raises(ValueError, match="centroid_topk: k=33"):
-        drv.search(data[:4], 10, nprobe=33)
+    assert drv.search(data[:4], 64).ids.shape == (4, 64)
+    got = drv.search(data[:4], 10, nprobe=64).ids
+    assert (got[:, 0] == np.arange(4)).all()       # each finds itself
+
+
+@pytest.mark.cuda
+def test_card_topk_kernels_refuse_k_past_the_cap(cuda_dev):
+    """The block-wide selection takes k up to 1024
+    (``TOPK_BLOCK_MAX_K``); past it the kernels raise, on the card only."""
+    x = _wide_inputs(cuda_dev, M=1100, G=40, C=33, P=32)
+    G = x["tiles"].shape[0]
+    vis = torch.ones(G, dtype=torch.bool, device=cuda_dev)
+    with pytest.raises(ValueError, match="centroid_topk: k=1025"):
+        ops.centroid_topk(x["q"], x["c"], x["vis"], k=1025)
+    with pytest.raises(ValueError, match="posting_scan_topk: k=1025"):
+        ops.posting_scan_topk(x["q"], x["tiles"], x["valid"], vis,
+                              x["probe"], k=1025)
+    assert ops.centroid_topk(x["q"], x["c"], x["vis"], k=1024)[1].shape \
+        == (37, 1024)
+    _, idx = ops.centroid_topk(x["q"].cpu(), x["c"].cpu(), x["vis"].cpu(),
+                               k=1025)
+    assert idx.shape == (37, 1025)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,K,d,p", [(2048, 256, 8, 1.0), (257, 100, 10, 0.7),
+                                     (300, 16, 100, 0.0)])
+def test_card_kmeans_assign_kernel(cuda_dev, N, K, d, p):
+    rng = np.random.default_rng(N + K)
+    ints = lambda s: torch.as_tensor(                          # noqa: E731
+        rng.integers(-3, 4, s).astype(np.float32), device=cuda_dev)
+    pts, cents = ints((N, 16 * d)), ints((32, K, d))
+    mask = torch.as_tensor(rng.random(N) < p, device=cuda_dev)
+    view = pts.view(N, 16, d).transpose(0, 1)        # (16, N, d), strided
+    got = _counted("kmeans_assign",
+                   lambda: ops.kmeans_assign(view, cents, mask))
+    want = ref.kmeans_assign(view, cents, mask)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,m,ksub,P,k", [(96, 16, 256, 32, 192),
+                                          (33, 10, 100, 8, 64),
+                                          (33, 4, 16, 3, 10)])
+def test_card_pq_scan_topk_kernel(cuda_dev, C, m, ksub, P, k):
+    """The m lookups are summed in the plain version's order, so the
+    kernel matches it bit for bit even on real-valued tables."""
+    rng = np.random.default_rng(C + m + k)
+    Q, M, V = 37, 200, 2
+    t = lambda a: torch.as_tensor(a, device=cuda_dev)          # noqa: E731
+    luts = t(rng.normal(size=(Q, V, m, ksub)).astype(np.float32))
+    codes = t(rng.integers(0, ksub, (M, m, C)).astype(np.uint8))
+    slot = t(rng.integers(0, V, M).astype(np.int32))
+    valid = t(rng.random((M, C)) < 0.7)
+    vis = t(rng.random(M) < 0.9)
+    probe = t(rng.integers(0, M, (Q, P)).astype(np.int32))
+    qp_ok = t((rng.random((Q, P)) < 0.9).astype(np.int32))
+    gs, gi = _counted("pq_scan_topk", lambda: ops.pq_scan_topk(
+        luts, codes, slot, valid, vis, probe, k=k, qp_ok=qp_ok))
+    ws, wi = ref.pq_scan_topk(luts, codes, slot, valid & vis[:, None],
+                              qp_ok, probe, k)
+    assert torch.equal(gi, wi) and torch.equal(gs, ws)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,k,ps,pe", [(192, 10, 0.0, 0.0),
+                                       (192, 192, 0.3, 0.2),
+                                       (64, 10, 0.0, 1.0)])
+def test_card_rerank_topk_kernel(cuda_dev, R, k, ps, pe):
+    """Spilled postings keep their ADC score, empty ADC slots score BIG,
+    ties go to the lower ADC rank (integer data: exact)."""
+    rng = np.random.default_rng(R + k)
+    Q, M, C, d = 37, 200, 33, 100
+    t = lambda a: torch.as_tensor(a, device=cuda_dev)          # noqa: E731
+    q = t(rng.integers(-1, 2, (Q, d)).astype(np.float32))
+    vecs = t(rng.integers(-1, 2, (M, C, d)).astype(np.float32))
+    spilled = t(rng.random(M) < ps)
+    cand = t(np.stack([rng.permutation(M * C)[:R] for _ in range(Q)])
+             .astype(np.int32))
+    adc = np.sort(rng.integers(-50, 50, (Q, R)), axis=1).astype(np.float32)
+    empty = rng.random((Q, R)) < pe
+    adc = t(np.where(empty, np.where(rng.random((Q, R)) < 0.5, 1e30,
+                                     np.inf), adc).astype(np.float32))
+    gs, gi = _counted("rerank_topk", lambda: ops.rerank_topk(
+        q, vecs, spilled, cand, adc, k=k))
+    ws, wi = ref.rerank_topk(q, vecs, spilled, cand, adc, k)
+    assert torch.equal(gi, wi) and torch.equal(gs, ws)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["ubis", "spfresh"])
+def test_card_quant_engines_run(cuda_dev, engine):
+    """Both engines on the quant plane, end to end on the card: the
+    quant kernels launch, the codes invariant holds after re-trains, and
+    search finds what the exact oracle finds."""
+    from repro_torch.api import make_index
+    from repro_torch.core import metrics
+    from repro_torch.core.invariants import check_invariants
+    from repro_torch.core.types import UBISConfig
+    rng = np.random.default_rng(1)
+    cents = rng.normal(size=(12, 16)) * 5
+    data = (cents[rng.integers(0, 12, 3000)]
+            + rng.normal(size=(3000, 16))).astype(np.float32)
+    cfg = UBISConfig(dim=16, max_postings=256, capacity=96, l_min=10,
+                     l_max=80, cache_capacity=1024, max_ids=1 << 14,
+                     use_pq=True, pq_m=4, pq_ksub=256, rerank_k=192)
+    ops.reset_launch_counts()
+    drv = make_index(engine, cfg, data[:800], device=cuda_dev,
+                     round_size=256, bg_ops_per_round=8, pq_retrain_every=2)
+    drv.insert(data, np.arange(len(data)))
+    drv.flush(max_ticks=20)
+    check_invariants(drv.state, cfg)
+    assert drv.stats["pq_retrains"] >= 1
+    q = data[:64] + rng.normal(size=(64, 16)).astype(np.float32) * 0.1
+    rec = metrics.recall_at_k(drv.search(q, 10).ids, drv.exact(q, 10).ids)
+    assert rec > 0.9, rec
+    counts = ops.launch_counts()
+    for name in ("kmeans_assign", "pq_scan_topk", "rerank_topk"):
+        assert counts[name] > 0, name
