@@ -7,12 +7,15 @@ Phases, in order (any failure exits non-zero before the last line):
 
 1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the parallel ``nvcc`` build of every kernel source.
-2. Each of the seven kernels against its plain PyTorch version on the
+2. Each of the eight kernels against its plain PyTorch version on the
    card: at the main paths' shapes on integer-valued data (exact
    arithmetic in any summation order, so ids and scores must match
    exactly), with the block-wide top-k past k = 32 (k = 64, 192), and at
    the edge shapes of the CPU tests (d=100 with odd C, m=10, ksub=100,
-   all masked, integer ties, spilled postings and empty ADC slots).
+   all masked, integer ties, spilled postings and empty ADC slots);
+   ``flash_attention`` at tests/test_kernels.py's 12 shapes and at the
+   serving path's (B=64, Hq=32, Hkv=4, L=512, D=64, causal), within 2e-4
+   abs and rel (softmax is not exact on real data).
 3. Two main paths at SIFT1M's shape through ``make_index``, each with
    the launch counts reset just before it and read just after it.
    (a) the float plane; (b) the quant plane (``use_pq=True``, PQ16:
@@ -29,16 +32,32 @@ Phases, in order (any failure exits non-zero before the last line):
    reported and not gated, and the two paths' recalls side by side.
    (c) the quant path once more on the float path's data, one streaming
    step, its recall reported and not gated (see ``QUANT_DATA``).
+   (d) the serving path: ``RetrievalServer`` over the full-width
+   tinyllama-1.1b backbone (22 layers, d_model 2048, 32/4 heads, weights
+   drawn from ``--seed``) and the default ``ubis`` index (64-d
+   embeddings, one tick per ingest batch) ingests 2,048 documents of 512
+   uniform random tokens in 32 batches of 64, flushes, answers 256
+   queries of 64 tokens through the serving queue and runs the recall
+   check.  Gates: recall@10 >= 0.9, ``live_count()`` = 2,048, the last
+   batch's first 8 documents find themselves at k=3, every kernel of the
+   path launched, one embedded batch with the kernel within 1e-4 of the
+   same model with the plain attention (fp32 summation order through 22
+   layers), and the Prometheus exposition parses and holds the request
+   latency histogram.
 4. Each kernel timed (CUDA events, median of 20 runs after warm-up) on
    its path's own inputs, beside its plain version, its bound and, where
    one PyTorch call computes the same product, that call (``addmm`` /
-   ``baddbmm``) as a library yardstick; the kernel is also held against
-   its plain version there.  The block-wide top-k is timed at k = 64 and
-   192 too.  Then a load chunk and a streaming step of the float path
-   and a streaming step of the quant path run under ``torch.profiler``:
+   ``baddbmm``; for ``flash_attention`` at the serving path's shape the
+   faster of two ``scaled_dot_product_attention`` calls, one with
+   ``enable_gqa`` and one on expanded k and v, each with the backend it
+   ran) as a library yardstick; the kernel is
+   also held against its plain version there.  The block-wide top-k is
+   timed at k = 64 and 192 too.  Then a load chunk and a streaming step
+   of the float path, a streaming step of the quant path and one
+   embedded batch of the serving path run under ``torch.profiler``:
    their wall time, device time by kernel and device busy share.
-5. The kernel line ``{"kernels": [...]}``, then as the last line
-   ``{"ok": true, "device": {...}}``.
+5. The card's name and power limit, the kernel line ``{"kernels":
+   [...]}``, then as the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -50,6 +69,7 @@ import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -59,13 +79,18 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 TOL = 1e-4           # relative to the score scale: fp32 summation order
+ATTN_TOL = 2e-4      # abs and rel: tests/test_kernels.py:127
 #: the kernels each main path must launch
 PATH_KERNELS = {
     "float": ("centroid_score", "centroid_topk", "posting_scan",
               "posting_scan_topk"),
     "quant": ("centroid_score", "centroid_topk", "posting_scan",
               "pq_scan_topk", "rerank_topk", "kmeans_assign"),
+    "serve": ("flash_attention", "centroid_score", "centroid_topk",
+              "posting_scan", "posting_scan_topk"),
 }
+#: the serving path's attention shape: (B, Hq, Hkv, L, D), causal
+SERVE_ATTN = (64, 32, 4, 512, 64)
 
 
 def fail(msg: str) -> None:
@@ -248,6 +273,54 @@ def kernel_checks(ops, ref, dev, seed: int) -> None:
     run("float Q=1 k=32/192",
         case(1, 1000, 128, 50, 96, 32, (32, 192), (32, 192), normal, m=16,
              ksub=256, R=192, k_r=10, N=2048))
+
+
+def require_attn_close(name, got, want) -> float:
+    """|kernel - plain| <= ATTN_TOL * (1 + |plain|) everywhere: every row
+    of these shapes has at least one valid key (a row with none has no
+    right answer, see ``ref.flash_attention``)."""
+    err = (got.double() - want.double()).abs()
+    if not bool((err <= ATTN_TOL * (1 + want.double().abs())).all()):
+        fail(f"{name}: max |kernel - plain| = {float(err.max()):.3g} "
+             f"beyond {ATTN_TOL} abs + rel")
+    return float(err.max())
+
+
+def attention_checks(ops, ref, dev, seed: int) -> None:
+    """``flash_attention`` against its plain version at the 12 shapes of
+    tests/test_kernels.py:114-117 (ragged tiles, Lq != Lk end alignment,
+    GQA 2:1 and 8:1, D = 16/32/64) and at the serving path's shape."""
+    g = np.random.default_rng(seed + 1)
+
+    def normal(shape):
+        return torch.as_tensor(g.standard_normal(shape, np.float32),
+                               device=dev)
+
+    n = 0
+    for Lq, Lk, D, Hq, Hkv in ((37, 53, 16, 4, 2), (64, 64, 32, 2, 2),
+                               (16, 128, 64, 8, 1)):
+        for causal in (True, False):
+            for window in (None, 9):
+                q, k, v = (normal((2, Hq, Lq, D)), normal((2, Hkv, Lk, D)),
+                           normal((2, Hkv, Lk, D)))
+                require_attn_close(
+                    f"flash_attention {Lq}x{Lk} D={D} {Hq}/{Hkv} "
+                    f"causal={causal} window={window}",
+                    ops.flash_attention(q, k, v, causal=causal,
+                                        window=window),
+                    ref.flash_attention(q, k, v, causal=causal,
+                                        window=window))
+                n += 1
+    B, Hq, Hkv, L, D = SERVE_ATTN
+    q, k, v = (normal((B, Hq, L, D)), normal((B, Hkv, L, D)),
+               normal((B, Hkv, L, D)))
+    err = require_attn_close("flash_attention at the serving path's shape",
+                             ops.flash_attention(q, k, v),
+                             ref.flash_attention(q, k, v))
+    torch.cuda.synchronize()
+    say(f"  flash_attention vs plain at {n} test shapes and the serving "
+        f"shape {SERVE_ATTN}: ok (max abs err there {err:.3g}, tolerance "
+        f"{ATTN_TOL} abs + rel)")
 
 
 # ---------------------------------------------------------------------------
@@ -434,6 +507,123 @@ def float_plane_recall(drv, q) -> float:
     found, _, _ = search(drv.state, cfg,
                          torch.as_tensor(q, device=drv.device), 10)
     return metrics.recall_at_k(found.cpu().numpy(), drv.exact(q, 10).ids)
+
+
+def plain_attention(ref):
+    """``ops.flash_attention`` with the kernel's plain version in its
+    place: the comparison run of the serving path's backbone."""
+    def fn(q, k, v, *, causal=True, window=None, scale=None):
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+    return fn
+
+
+def serve_path(dev, ops, ref, *, seed: int, reduced: bool = False,
+               docs: int = 2048, seq: int = 512, batch: int = 64,
+               queries: int = 256, qseq: int = 64, log=say):
+    """Drive ``RetrievalServer`` (tinyllama-1.1b, full width unless
+    ``reduced``) through ingest -> flush -> query -> recall check ->
+    freshness probe, with the launch counts reset before and read after.
+    Returns (server, counts, the last ingested token batch, secs)."""
+    from repro_torch.launch.serve import RetrievalServer, ServeConfig
+    from repro_torch.obs import parse_exposition
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    secs = {}
+    t = time.perf_counter()
+    server = RetrievalServer(ServeConfig(
+        arch="tinyllama-1.1b", reduced=reduced, embed_dim=64, k=10,
+        tick_every=1, seed=seed, device=str(dev)))
+    emb = server.embedder
+    sync()
+    secs["build"] = time.perf_counter() - t
+    mcfg = emb.model.cfg
+    n_params = sum(p.numel() for p in emb.model.parameters())
+    log(f"  backbone {mcfg.name}: {mcfg.n_layers} layers, d_model "
+        f"{mcfg.d_model}, {mcfg.n_heads}/{mcfg.n_kv} heads x {mcfg.hd}, "
+        f"d_ff {mcfg.d_ff}, vocab {mcfg.vocab}: {n_params / 1e9:.3f} B "
+        f"parameters drawn in {secs['build']:.1f} s")
+    rng = np.random.default_rng(seed)
+
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    for _ in range(docs // batch):
+        toks = rng.integers(0, mcfg.vocab, (batch, seq)).astype(np.int32)
+        ids = server.ingest_tokens(toks)
+    sync()
+    secs["ingest"] = time.perf_counter() - t
+    t = time.perf_counter()
+    flush_ticks = server.index.flush()
+    sync()
+    secs["flush"] = time.perf_counter() - t
+    qt = rng.integers(0, mcfg.vocab, (queries, qseq)).astype(np.int32)
+    t = time.perf_counter()
+    res = server.query_tokens(qt)
+    secs["query"] = time.perf_counter() - t
+    t = time.perf_counter()
+    rec = server.recall_check(server.embedder.embed(qt), k=10)
+    secs["recall_check"] = time.perf_counter() - t
+    found = server.query_vectors(server.embedder.embed(toks[:8]), k=3).ids
+    counts = ops.launch_counts()
+
+    n = server.stats["ingested"]
+    lat = server.obs.histogram("serve_latency_seconds")
+    log(f"  ingested {n} docs x {seq} tokens in {secs['ingest']:.2f} s: "
+        f"{n / secs['ingest']:.1f} docs/s, {n * seq / secs['ingest']:.0f} "
+        f"tokens/s (embed + insert + a tick per batch); flush "
+        f"{flush_ticks} ticks {secs['flush']:.2f} s; {queries} queries x "
+        f"{qseq} tokens in {secs['query']:.3f} s (embed + queue); serving "
+        f"latency of the search requests p50 {lat.quantile(0.5) * 1e3:.3f} "
+        f"ms, p99 {lat.quantile(0.99) * 1e3:.3f} ms over {lat.count}")
+    log(f"  seconds per phase: {json.dumps({k: round(v, 3) for k, v in secs.items()})}")
+    log(f"  launches on the serve path: {json.dumps(counts)}")
+    log(f"  index stats: live postings {len(server.index.posting_lengths())}, "
+        + json.dumps({k: server.index.stats[k] for k in (
+            "inserted", "bg_split", "bg_merge", "bg_compact", "drained")}))
+    log(f"  recall@10 {rec:.4f} (gate >= 0.9, margin {rec - 0.9:+.4f})")
+    if not rec >= 0.9:
+        fail(f"serve path: recall@10 {rec:.4f} < 0.9")
+    if res.ids.shape != (queries, 10) or not np.isfinite(res.scores).all():
+        fail("serve path: query_tokens returned the wrong shape or "
+             "non-finite scores")
+    live = server.index.live_count()
+    if live != docs:
+        fail(f"serve path: live_count {live} != {docs} ingested")
+    fresh = sum(int(ids[i]) in set(f.tolist()) for i, f in enumerate(found))
+    log(f"  freshness: {fresh}/8 of the last batch find themselves at k=3")
+    if fresh != 8:
+        fail(f"serve path: only {fresh}/8 fresh documents found at k=3")
+    for name in PATH_KERNELS["serve"]:
+        if counts[name] <= 0:
+            fail(f"kernel {name} was never launched on the serve path")
+
+    # one embedded batch, kernel against plain attention on the same card
+    got = emb.embed(toks)
+    with mock.patch.object(ops, "flash_attention", plain_attention(ref)):
+        want = emb.embed(toks)
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    log(f"  embedding with the kernel vs plain attention: max abs err "
+        f"{err:.3g} = {err / scale:.3g} of the scale {scale:.3g} (gate "
+        f"1e-4: fp32 summation order through {mcfg.n_layers} layers)")
+    if not err <= 1e-4 * scale:
+        fail(f"serve path: kernel embedding off by {err / scale:.3g} of "
+             "its scale")
+    if not np.isfinite(got).all():
+        fail("serve path: non-finite embeddings")
+    del got, want
+    text = server.metrics_text()
+    series = parse_exposition(text)
+    if series.get("serve_latency_seconds_count", 0) <= 0:
+        fail("serve path: the exposition holds no serve_latency_seconds")
+    log(f"  metrics_text: {len(series)} series parse, "
+        f"serve_latency_seconds_count {series['serve_latency_seconds_count']:g}")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return server, counts, toks, secs
 
 
 # ---------------------------------------------------------------------------
@@ -665,11 +855,77 @@ def time_quant_kernels(ops, ref, qdrv, fdrv, q_np, counts) -> list:
     return rows
 
 
-def profile_windows(drv, stream, qdrv, qstream) -> dict:
-    """Device time by kernel over three windows, with ``torch.profiler``:
+def sdpa_backend(fn) -> tuple:
+    """The backend a ``scaled_dot_product_attention`` call dispatched to,
+    read off the names of the device kernels one call launches under
+    ``torch.profiler``: (label, the names)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({ev.key for ev in prof.key_averages()
+                    if str(ev.device_type).endswith("CUDA")})
+    low = " ".join(names).lower()
+    for keys, label in ((("memeff", "fmha", "efficient"), "efficient"),
+                        (("flash",), "flash"), (("cudnn",), "cudnn")):
+        if any(key in low for key in keys):
+            return label, names
+    return "math", names
+
+
+def time_attention(ops, ref, dev, counts, seed: int) -> dict:
+    """``flash_attention`` at the serving path's shape (every layer of
+    the backbone gives it B=64, Hq=32, Hkv=4, L=512, D=64, causal), on
+    random normal q, k, v.  The yardstick is the faster of two
+    ``scaled_dot_product_attention`` calls with ``is_causal=True`` (its
+    top-left causal alignment equals the end alignment here, Lq = Lk):
+    one with ``enable_gqa=True``, one on k and v expanded to Hq heads by
+    ``repeat_interleave`` inside the timed call (fp32 GQA may leave the
+    fused backends; the expanded call can take the memory-efficient one).
+    Each is checked against the plain version, and the backend each ran
+    is printed."""
+    import torch.nn.functional as F
+    g = np.random.default_rng(seed + 2)
+    B, Hq, Hkv, L, D = SERVE_ATTN
+    G = Hq // Hkv
+    q, k, v = (torch.as_tensor(g.standard_normal(s, np.float32), device=dev)
+               for s in ((B, Hq, L, D), (B, Hkv, L, D), (B, Hkv, L, D)))
+    plain = lambda: ref.flash_attention(q, k, v, causal=True)  # noqa: E731
+    row = timed_row(
+        ops, counts, "flash_attention",
+        lambda: ops.flash_attention(q, k, v, causal=True), plain, None,
+        lambda a, b: require_attn_close("flash_attention, timed inputs", a,
+                                        b),
+        4.0 * B * Hq * D * L * (L + 1) / 2,
+        4.0 * (2 * B * Hq * L * D + 2 * B * Hkv * L * D))
+    sdpa = {
+        "enable_gqa": lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True),
+        "repeat_interleave": lambda: F.scaled_dot_product_attention(
+            q, k.repeat_interleave(G, 1), v.repeat_interleave(G, 1),
+            is_causal=True)}
+    want = plain()
+    times = {}
+    for name, fn in sdpa.items():
+        require_attn_close(f"sdpa {name}", fn(), want)
+        label, names = sdpa_backend(fn)
+        times[name] = median_ms(fn)
+        say(f"  sdpa {name}: {times[name]:.4f} ms, backend {label} "
+            f"(kernels: {'; '.join(n[:60] for n in names[:4])})")
+    del want
+    row["library_ms"] = min(times.values())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return row
+
+
+def profile_windows(drv, stream, qdrv, qstream, embed_batch) -> dict:
+    """Device time by kernel over four windows, with ``torch.profiler``:
     on the float path one load chunk (20k inserts, then ticks until
     quiescent) and one streaming step (20k inserts, 10k deletes, a tick,
-    a 256-query search); on the quant path one streaming step.  The busy
+    a 256-query search); on the quant path one streaming step; on the
+    serving path one embedded batch of 64 x 512 tokens.  The busy
     share is device time over wall time (one stream, so kernels do not
     overlap); the wall time includes the profiler's own host overhead."""
     from torch.profiler import ProfilerActivity, profile
@@ -697,7 +953,8 @@ def profile_windows(drv, stream, qdrv, qstream) -> dict:
 
     for name, fn in (("load_chunk", load_chunk),
                      ("stream_step", lambda: step(drv, stream)),
-                     ("quant_stream_step", lambda: step(qdrv, qstream))):
+                     ("quant_stream_step", lambda: step(qdrv, qstream)),
+                     ("serve_embed_batch", embed_batch)):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -755,6 +1012,7 @@ def main() -> None:
     say("phase 2: kernels against their plain versions")
     t = time.perf_counter()
     kernel_checks(ops, ref, dev, args.seed)
+    attention_checks(ops, ref, dev, args.seed)
     torch.cuda.empty_cache()
     say(f"  {time.perf_counter() - t:.1f} s")
 
@@ -801,18 +1059,25 @@ def main() -> None:
     del drv
     torch.cuda.empty_cache()
 
+    say("phase 3d: the serving path, RetrievalServer over tinyllama-1.1b at "
+        "full width, 2048 docs x 512 tokens")
+    server, launched, toks, _ = serve_path(dev, ops, ref, seed=args.seed)
+    counts = {k: counts.get(k, 0) + v for k, v in launched.items()}
+
     say("phase 4: kernel times on the main paths' inputs")
     fdrv, fq, _, fstream = paths["float"]
     qdrv, qq, _, qstream = paths["quant"]
     rows = time_kernels(ops, ref, fdrv, fq, counts)
     rows += time_quant_kernels(ops, ref, qdrv, fdrv, qq, counts)
+    rows.append(time_attention(ops, ref, dev, counts, args.seed))
     for r in rows:
         say(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
             f"bound {r['bound_ms']:.4f} by {r['bound_by']}, library "
             f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}), "
             f"launches {r['launches']}, max err {r['max_abs_err']:.3g}")
     say("phase 4b: device time by kernel (torch.profiler)")
-    profile_windows(fdrv, fstream, qdrv, qstream)
+    profile_windows(fdrv, fstream, qdrv, qstream,
+                    lambda: server.embedder.embed(toks))
     say(smi)
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {

@@ -3,10 +3,11 @@
 The registry imports the driver, which imports the result types from
 here, so ``make_index`` loads lazily (as in the JAX package's ``api``).
 """
-from .types import SearchResult, TickReport, UpdateResult
+from .types import (SearchRequest, SearchResult, Ticket, TickReport,
+                    UpdateResult)
 
-__all__ = ["ENGINES", "make_index", "SearchResult", "TickReport",
-           "UpdateResult"]
+__all__ = ["ENGINES", "make_index", "SearchRequest", "SearchResult",
+           "Ticket", "TickReport", "UpdateResult"]
 
 
 def __getattr__(name):

@@ -5,7 +5,9 @@ This slice of the port knows the two single-device cluster engines,
 registry (spann, freshdiskann, ubis-sharded, ubis-cluster) raises until
 its slice is ported.  Keyword arguments unknown to an engine are
 dropped, so one kwargs dict can drive an engine-comparison loop.  The
-index runs on the card unless ``device="cpu"`` is passed.
+index runs on the card unless ``device="cpu"`` is passed; ``obs=`` hands
+the driver an observability plane to share (the serving layer's), so
+one exposition covers the driver and the request spans.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ ENGINES = ("ubis", "spfresh")
 _UBIS_KW = frozenset({
     "seed", "round_size", "bg_ops_per_round", "drain_per_tick",
     "fused_tick", "device", "kmeans_init", "pq_retrain_every", "pq_init",
-    "pq_keys"})
+    "pq_keys", "obs"})
 
 
 def make_index(engine: str, cfg: UBISConfig, seed_vectors, **kw):

@@ -99,9 +99,10 @@ class UBISDriver:
     ``seed``); ``pq_retrain_every``, the codebook re-train cadence in
     ticks (0 = never); ``pq_keys``, an iterable of (M*C,) uniform draws
     in [0, 1), one per re-train, that pick its sample (default: drawn
-    from a ``torch.Generator`` seeded from ``seed``).  ``fused_tick=True``
-    (device-side candidate selection) belongs to a later slice and
-    raises.
+    from a ``torch.Generator`` seeded from ``seed``).  ``obs``: the
+    observability plane to report into (default: a new ``Obs()``).
+    ``fused_tick=True`` (device-side candidate selection) belongs to a
+    later slice and raises.
     """
 
     def __init__(self, cfg: UBISConfig, seed_vectors=None, *,
@@ -109,7 +110,7 @@ class UBISDriver:
                  bg_ops_per_round: int = 4, drain_per_tick: int = 256,
                  fused_tick: bool = False, pq_retrain_every: int = 32,
                  device=None, kmeans_init=None, pq_init=None,
-                 pq_keys=None):
+                 pq_keys=None, obs: Optional[Obs] = None):
         require_untiered(cfg)
         if fused_tick:
             raise NotImplementedError(
@@ -123,7 +124,7 @@ class UBISDriver:
         self.bg_ops = int(bg_ops_per_round)
         self.drain_n = int(drain_per_tick)
         self.pq_retrain_every = int(pq_retrain_every)
-        self.obs = Obs()
+        self.obs = obs if obs is not None else Obs()
 
         seeds = torch.as_tensor(np.asarray(seed_vectors, np.float32),
                                 device=self.device)

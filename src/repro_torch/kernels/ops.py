@@ -20,6 +20,7 @@ import torch
 
 from . import centroid_score as _cs
 from . import centroid_topk as _ct
+from . import flash_attention as _fa
 from . import kmeans_assign as _ka
 from . import posting_scan as _ps
 from . import pq_scan as _pq
@@ -161,6 +162,27 @@ def rerank_topk(q: torch.Tensor, vectors: torch.Tensor,
     return ref.rerank_topk(q, vectors, tier_spilled, cand, adc, k)
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """(B, Hq, Lq, D), (B, Hkv, Lk, D) x2 -> (B, Hq, Lq, D) fp32:
+    attention with GQA (q head h reads kv head ``h // (Hq // Hkv)``),
+    query rows aligned to the end of the keys, optional causal mask and
+    sliding ``window``; ``scale`` defaults to ``1 / sqrt(D)``."""
+    B, Hq, Lq, D = q.shape
+    if k.shape != v.shape or k.dim() != 4 or k.shape[0] != B or \
+            k.shape[3] != D:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    if _on_card(q):
+        return _fa.flash_attention(_f32(q), _f32(k), _f32(v), causal=causal,
+                                   window=window, scale=scale)
+    return ref.flash_attention(q, k, v, causal=causal, window=window,
+                               scale=scale)
+
+
 # ---------------------------------------------------------------------------
 # launch accounting
 # ---------------------------------------------------------------------------
@@ -175,6 +197,7 @@ KERNELS = {
     "pq_scan_topk": (_pq, "launches", _pq.SOURCE, _pq.REPLACES),
     "rerank_topk": (_rr, "launches", _rr.SOURCE, _rr.REPLACES),
     "kmeans_assign": (_ka, "launches", _ka.SOURCE, _ka.REPLACES),
+    "flash_attention": (_fa, "launches", _fa.SOURCE, _fa.REPLACES),
 }
 
 

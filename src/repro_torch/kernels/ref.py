@@ -159,3 +159,45 @@ def rerank_topk(q: torch.Tensor, vectors: torch.Tensor,
     exact = torch.where(adc < BIG / 2, exact, BIG)
     top, pos = stable_topk(exact, k)
     return top, torch.gather(cand, 1, pos).to(torch.int32)
+
+
+NEG = -1e30  # attention mask value, as the Pallas kernel masks (not -inf)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    *, causal: bool = True, window: int | None = None,
+                    scale: float | None = None) -> torch.Tensor:
+    """Attention in one pass, with the Pallas kernel's semantics.
+
+    q (B, Hq, Lq, D); k, v (B, Hkv, Lk, D) -> (B, Hq, Lq, D) fp32.  GQA:
+    q head h reads kv head ``h // (Hq // Hkv)``.  Query row i sits at
+    position ``Lk - Lq + i`` (the ends align); ``causal`` keeps keys at
+    or before it and ``window`` keys in ``(qpos - window, qpos]``.  Masked
+    logits are ``NEG`` and the denominator is clamped at 1e-30, so a row
+    with no valid key gets an average of ``v``, never NaN (the kernel's
+    average there depends on its tiling: no implementation is right
+    for such a row).  ``scale`` defaults to ``1 / sqrt(D)`` and, as in
+    the kernel, multiplies q before the product."""
+    B, Hq, Lq, D = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"flash_attention: Hq={Hq} not a multiple of "
+                         f"Hkv={Hkv}")
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    G = Hq // Hkv
+    qg = q.float().reshape(B, Hkv, G, Lq, D) * scale
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float())
+    qpos = torch.arange(Lq, device=q.device)[:, None] + (Lk - Lq)
+    kpos = torch.arange(Lk, device=q.device)[None, :]
+    mask = torch.ones((Lq, Lk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    # in place: at the serving path's shape s alone is 2 GiB
+    p = s.masked_fill_(~mask, NEG)
+    p = p.sub_(p.amax(-1, keepdim=True)).exp_()
+    den = p.sum(-1, keepdim=True).clamp_min_(1e-30)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float()) / den
+    return out.reshape(B, Hq, Lq, D)

@@ -4,10 +4,12 @@
   ``jax`` and ``repro`` blocked: the port never needs the JAX package.
 * No ``torch.topk`` anywhere in the port: its tie order is not the
   reference's lowest-index-first (``ref.stable_topk`` is the one top-k).
-* The entry points run on the card by default and raise without one
-  unless the caller asks for the CPU; the planes of later slices (the
-  cold tier, the fused tick) raise ``NotImplementedError`` instead of
-  being ignored, and the quant plane (``use_pq``) runs.
+* The entry points (the drivers, ``make_index``, ``get_model``,
+  ``EmbeddingServer``, ``RetrievalServer``) run on the card by default
+  and raise without one unless the caller asks for the CPU; the planes
+  of later slices (the cold tier, the fused tick, the decode path)
+  raise ``NotImplementedError`` instead of being ignored, and the quant
+  plane (``use_pq``) runs.
 """
 import os
 import subprocess
@@ -22,6 +24,9 @@ from repro_torch.api import make_index
 from repro_torch.core.driver import UBISDriver
 from repro_torch.core.spfresh import SPFreshDriver
 from repro_torch.core.types import UBISConfig
+from repro_torch.launch.serve import (EmbeddingServer, RetrievalServer,
+                                      ServeConfig)
+from repro_torch.models import get_model
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -46,7 +51,10 @@ for m in mods:
 import chip_smoke
 bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "repro"))
 assert not bad, bad
-assert "repro_torch.quant.pq" in mods, mods
+for m in ("repro_torch.quant.pq", "repro_torch.models.transformer",
+          "repro_torch.serving.engine", "repro_torch.launch.serve",
+          "repro_torch.obs.probe", "repro_torch.kernels.flash_attention"):
+    assert m in mods, (m, mods)
 print(len(mods))
 """
 
@@ -57,7 +65,7 @@ def test_port_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", _GUARD], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.split()[-1]) >= 20      # every module was walked
+    assert int(out.stdout.split()[-1]) >= 35      # every module was walked
 
 
 def test_no_torch_topk_in_the_port():
@@ -78,6 +86,12 @@ def test_entry_points_raise_without_cuda():
         UBISDriver(cfg, seeds)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_index("ubis", cfg, seeds)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_model("tinyllama-1.1b", reduced=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EmbeddingServer(ServeConfig(reduced=True))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RetrievalServer(ServeConfig(reduced=True))
     assert make_index("spfresh", cfg, seeds, device="cpu").cfg.mode == \
         "spfresh"
     assert SPFreshDriver(cfg, seeds, device="cpu").cfg.mode == "spfresh"
@@ -90,9 +104,24 @@ def test_entry_points_raise_without_cuda():
     pytest.param(dict(use_pq=True, pq_m=4, use_tier=True), "cold tier",
                  id="kw1-quant plane"),
     pytest.param(dict(fused_tick=True), "fused_tick", id="kw2-fused_tick"),
+    pytest.param(dict(lm="prefill"), "decode slice", id="lm-prefill"),
+    pytest.param(dict(lm="decode_step"), "decode slice",
+                 id="lm-decode_step"),
+    pytest.param(dict(lm_cfg=dict(qk_norm=True)), "qk_norm",
+                 id="lm-qk_norm"),
 ])
 def test_later_slices_raise_not_implemented(kw, what):
     kw = dict(kw)
+    if "lm_cfg" in kw:
+        with pytest.raises(NotImplementedError, match=what):
+            get_model("tinyllama-1.1b", reduced=True, device="cpu",
+                      **kw["lm_cfg"])
+        return
+    if "lm" in kw:
+        lm = get_model("tinyllama-1.1b", reduced=True, device="cpu")
+        with pytest.raises(NotImplementedError, match=what):
+            getattr(lm, kw["lm"])({"tokens": np.zeros((1, 4), np.int32)})
+        return
     fused = kw.pop("fused_tick", False)
     cfg = UBISConfig(dim=8, max_postings=64, capacity=32, l_min=4, l_max=24,
                      cache_capacity=64, max_ids=1 << 10, **kw)

@@ -151,7 +151,9 @@ def test_cpu_tensors_take_the_plain_version():
     adc, cand = ops.pq_scan_topk(luts, codes, torch.zeros(2), ones,
                                  ones[:, 0], probe, k=6)
     ops.rerank_topk(q, c.reshape(2, 5, 8), ~ones[:, 0], cand, adc, k=3)
-    assert len(ops.launch_counts()) == 7
+    ops.flash_attention(torch.randn(1, 2, 3, 8), torch.randn(1, 1, 5, 8),
+                        torch.randn(1, 1, 5, 8), window=2)
+    assert len(ops.launch_counts()) == 8
     assert set(ops.launch_counts().values()) == {0}
 
 
