@@ -7,7 +7,7 @@ Phases, in order (any failure exits non-zero before the last line):
 
 1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the parallel ``nvcc`` build of every kernel source.
-2. Each of the eight kernels against its plain PyTorch version on the
+2. Each of the ten kernels against its plain PyTorch version on the
    card: at the main paths' shapes on integer-valued data (exact
    arithmetic in any summation order, so ids and scores must match
    exactly), with the block-wide top-k past k = 32 (k = 64, 192), and at
@@ -30,6 +30,19 @@ Phases, in order (any failure exits non-zero before the last line):
    codes <-> floats invariant and at least one re-train), and every
    kernel of the path launched.  Then recall@10 on harder queries,
    reported and not gated, and the two paths' recalls side by side.
+   (e) the unfused search oracle on both states with the last step's
+   256 queries: ``centroid_score`` -> stable top-``nprobe`` ->
+   ``posting_scan_gather`` -> the cache -> stable top-10 against the
+   fused search (scores within the tolerance, ids equal but at
+   near-ties); ``pq_scan_gather`` on the quant search's probes and
+   tables -> stable top-``rerank_k`` equal to ``pq_scan_topk`` exactly.
+   (f) the tiered path: the quant path with the cold tier
+   (``use_tier``, ``tier_async``, 256 moves per tick, ``TIER_HOT_MAX``
+   float-resident postings), at least ``TIER_SHARE`` of the live
+   postings spilled after the load, the same steps and gates plus the
+   residency invariant; its counters, the memory split and search
+   seconds beside the quant path's; 64 tiles spilled and promoted back
+   bit for bit.
    (c) the quant path once more on the float path's data, one streaming
    step, its recall reported and not gated (see ``QUANT_DATA``).
    (d) the serving path: ``RetrievalServer`` over the full-width
@@ -47,15 +60,17 @@ Phases, in order (any failure exits non-zero before the last line):
 4. Each kernel timed (CUDA events, median of 20 runs after warm-up) on
    its path's own inputs, beside its plain version, its bound and, where
    one PyTorch call computes the same product, that call (``addmm`` /
-   ``baddbmm``; for ``flash_attention`` at the serving path's shape the
-   faster of two ``scaled_dot_product_attention`` calls, one with
-   ``enable_gqa`` and one on expanded k and v, each with the backend it
-   ran) as a library yardstick; the kernel is
-   also held against its plain version there.  The block-wide top-k is
-   timed at k = 64 and 192 too.  Then a load chunk and a streaming step
-   of the float path, a streaming step of the quant path and one
-   embedded batch of the serving path run under ``torch.profiler``:
-   their wall time, device time by kernel and device busy share.
+   ``baddbmm``, the gather's with ``index_select`` inside the call; for
+   ``flash_attention`` at the serving path's shape the faster of two
+   ``scaled_dot_product_attention`` calls, one with ``enable_gqa`` and
+   one on expanded k and v, each with the backend it ran) as a library
+   yardstick; the kernel is also held against its plain version there.
+   The block-wide top-k is timed at k = 64 and 192 too.  Then a load
+   chunk and a streaming step of the float path, a streaming step of the
+   quant and of the tiered path and one embedded batch of the serving
+   path run under ``torch.profiler``: their wall time, device time by
+   kernel and device busy share, and on the tiered step the copies by
+   stream and their overlap with the main stream's kernels.
 5. The card's name and power limit, the kernel line ``{"kernels":
    [...]}``, then as the last line ``{"ok": true, "device": {...}}``.
 
@@ -88,9 +103,22 @@ PATH_KERNELS = {
               "pq_scan_topk", "rerank_topk", "kmeans_assign"),
     "serve": ("flash_attention", "centroid_score", "centroid_topk",
               "posting_scan", "posting_scan_topk"),
+    "tier": ("centroid_score", "centroid_topk", "posting_scan",
+             "pq_scan_topk", "rerank_topk", "kmeans_assign"),
+    "oracle": ("centroid_score", "posting_scan_gather", "pq_scan_gather"),
 }
 #: the serving path's attention shape: (B, Hq, Hkv, L, D), causal
 SERVE_ATTN = (64, 32, 4, 512, 64)
+#: the tiered path's device high-watermark (float-resident postings), and
+#: the least share of live postings it must leave spilled after the load
+TIER_HOT_MAX = 4096
+TIER_SHARE = 0.75
+#: the tiered path's codebook re-train cadence in ticks.  A re-train first
+#: promotes every spilled posting pinned to the codebook slot it evicts,
+#: so each spilled posting returns within two re-trains; at the quant
+#: path's cadence (32 ticks) and 256 moves per tick the pool held 7,168
+#: of 19,291 live postings after the load (PERF.md, the tiered path)
+TIER_RETRAIN_EVERY = 256
 
 
 def fail(msg: str) -> None:
@@ -197,6 +225,9 @@ def kernel_checks(ops, ref, dev, seed: int) -> None:
         out = ops.posting_scan(q, tiles, valid)
         check(f"posting_scan[{label}]", (out,), (ref.posting_scan(q, tiles, valid),))
         pvalid = valid & pvis[:, None]
+        out = ops.posting_scan_gather(q, tiles, valid, pvis, probe)
+        check(f"posting_scan_gather[{label}]", (out,),
+              (ref.posting_scan_gather(q, tiles, pvalid, probe),))
         for k in x["k_p"]:
             out = ops.posting_scan_topk(q, tiles, valid, pvis, probe, k=k,
                                         qp_ok=qp_ok)
@@ -210,6 +241,10 @@ def kernel_checks(ops, ref, dev, seed: int) -> None:
         require_exact(f"pq_scan_topk R={R}[{label}]", (adc, cand),
                       ref.pq_scan_topk(luts, codes, slot, pvalid, qp_ok,
                                        probe, R))
+        require_exact(f"pq_scan_gather[{label}]",
+                      (ops.pq_scan_gather(luts, codes, slot, valid, pvis,
+                                          probe),),
+                      (ref.pq_scan_gather(luts, codes, slot, pvalid, probe),))
         adc = torch.where(x["empty"], x["empty_val"], adc)
         out = ops.rerank_topk(q, tiles, x["spilled"], cand, adc, k=x["k_r"])
         check(f"rerank_topk[{label}]", out,
@@ -382,29 +417,75 @@ def quant_config(dim: int) -> dict:
                 pq_sample=2048, rerank_k=192)
 
 
+def instrument_tier(tier) -> None:
+    """Reporting hooks on a driver's ``TierManager``: ``retrain_promoted``
+    counts the spilled postings that ``promote_retrain_pinned`` moves back
+    before each codebook re-train (the driver's stats fold them into
+    ``tier_promoted``); ``host_s`` holds the host seconds and calls of
+    the search's exact rerank (``rerank``) and of the exact oracle's pool
+    scan (``exact_merge``)."""
+    tier.retrain_promoted = 0
+    tier.host_s = {"rerank": [0.0, 0], "exact_merge": [0.0, 0]}
+    inner = tier.promote_retrain_pinned
+
+    def counted(state):
+        state, n = inner(state)
+        tier.retrain_promoted += n
+        return state, n
+    tier.promote_retrain_pinned = counted
+    for name in tier.host_s:
+        def timed(*a, _fn=getattr(tier, name), _name=name, **k):
+            t = time.perf_counter()
+            out = _fn(*a, **k)
+            tier.host_s[_name][0] += time.perf_counter() - t
+            tier.host_s[_name][1] += 1
+            return out
+        setattr(tier, name, timed)
+
+
+def hot_postings(drv) -> int:
+    """Float-resident NORMAL postings: what the watermark counts."""
+    st = drv.state
+    return int((st.allocated & ((st.rec_meta & 3) == 0)
+                & ~st.tier_spilled).sum())
+
+
+def spilled_share(drv) -> float:
+    """Spilled postings over live (allocated, not DELETED) postings."""
+    st = drv.state
+    live = st.allocated & ((st.rec_meta & 3) != 3)
+    return int((st.tier_spilled & live).sum()) / max(1, int(live.sum()))
+
+
 def main_path(dev, *, n: int, dim: int, max_postings: int,
               cache_capacity: int, steps: int, fresh: int, dels: int,
               queries: int, chunk: int, seed: int, round_size: int,
               bg_ops: int, quant: bool = False, pq_retrain_every: int = 32,
-              data=None, gate: bool = True, log=say):
+              tier_hot_max: int = 0, data=None, gate: bool = True,
+              log=say):
     """Drive ``make_index("ubis", ...)`` through load + streaming steps,
-    on the float plane or (``quant``) the quant plane; ``data``: keyword
-    arguments of ``Stream``; ``gate=False`` reports recall@10 without
-    failing below 0.9.  Returns (driver, last queries, per-phase seconds,
-    recalls, stream)."""
+    on the float plane or (``quant``) the quant plane, with the cold tier
+    when ``tier_hot_max`` > 0 (``tier_async``, 256 moves per tick; at
+    least ``TIER_SHARE`` of the live postings spilled after the load);
+    ``data``: keyword arguments of ``Stream``; ``gate=False`` reports
+    recall@10 without failing below 0.9.  Returns (driver, last queries,
+    per-phase seconds, recalls, stream)."""
     from repro_torch.api import make_index
     from repro_torch.core import metrics
-    from repro_torch.core.invariants import check_invariants
+    from repro_torch.core.invariants import check_invariants, check_residency
     from repro_torch.core.types import UBISConfig
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
+    tier = tier_hot_max > 0
     cfg = UBISConfig(dim=dim, max_postings=max_postings, capacity=96,
                      l_min=10, l_max=80, balance_factor=0.15, nprobe=32,
                      cache_capacity=cache_capacity, max_ids=1 << 21,
-                     **(quant_config(dim) if quant else {}))
+                     **(quant_config(dim) if quant else {}),
+                     **(dict(use_tier=True, tier_hot_max=tier_hot_max)
+                        if tier else {}))
     secs = {}
     t = time.perf_counter()
     stream = Stream(dim, max(8, n // 500), seed, **(data or {}))
@@ -415,9 +496,13 @@ def main_path(dev, *, n: int, dim: int, max_postings: int,
     drv = make_index("ubis", cfg, base, device=dev, seed=seed,
                      round_size=round_size, bg_ops_per_round=bg_ops,
                      drain_per_tick=round_size,
-                     pq_retrain_every=pq_retrain_every)
+                     pq_retrain_every=pq_retrain_every,
+                     **(dict(tier_async=True, tier_moves_per_tick=256)
+                        if tier else {}))
     sync()
     secs["build"] = time.perf_counter() - t
+    if tier:
+        instrument_tier(drv.tier)
 
     t = time.perf_counter()
     ticks = 0
@@ -426,13 +511,35 @@ def main_path(dev, *, n: int, dim: int, max_postings: int,
         for _ in range(64):
             ticks += 1
             r = drv.tick()
-            if r.executed == 0 and r.marked == 0:
+            if (r.executed == 0 and r.marked == 0 and r.spilled == 0
+                    and r.promoted == 0):
                 break
     sync()
     secs["load"] = time.perf_counter() - t
     log(f"  loaded {n} vectors: {secs['load']:.1f} s, {ticks} ticks, "
         f"rejected {drv.stats['rejected']:.0f}, live postings "
         f"{len(drv.posting_lengths())}")
+    if tier:
+        # settle: tick until the float-resident postings are back under
+        # the watermark (the last chunk's appends leave them too warm to
+        # spill at once)
+        settle = 0
+        while settle < 64 and hot_postings(drv) > tier_hot_max:
+            drv.tick()
+            settle += 1
+        sync()
+        secs["settle"] = time.perf_counter() - t - secs["load"]
+        share = spilled_share(drv)
+        log(f"  settled in {settle} ticks ({secs['settle']:.1f} s); "
+            f"re-trains {drv.stats['pq_retrains']:.0f}, postings they "
+            f"promoted {drv.tier.retrain_promoted}")
+        log(f"  tier_hot_max {tier_hot_max}: {100 * share:.2f}% of the live "
+            f"postings spilled after the load ({len(drv.tier.pool)} tiles, "
+            f"{drv.tier.pool.nbytes()} bytes in the pinned pool; gate >= "
+            f"{100 * TIER_SHARE:.0f}%)")
+        if not share >= TIER_SHARE:
+            fail(f"only {100 * share:.2f}% of the live postings spilled "
+                 "after the load")
 
     next_id, oldest = n, 0
     recalls = []
@@ -475,6 +582,8 @@ def main_path(dev, *, n: int, dim: int, max_postings: int,
     if live != want:
         fail(f"live_count {live} != inserted - deleted {want}")
     check_invariants(drv.state, cfg)       # with use_pq: codes == encode
+    if tier:
+        check_residency(drv.state, cfg, drv.tier.pool)
     if quant and drv.stats["pq_retrains"] < 1:
         fail("the quant path never re-trained its codebooks")
     return drv, q, secs, recalls, stream
@@ -507,6 +616,157 @@ def float_plane_recall(drv, q) -> float:
     found, _, _ = search(drv.state, cfg,
                          torch.as_tensor(q, device=drv.device), 10)
     return metrics.recall_at_k(found.cpu().numpy(), drv.exact(q, 10).ids)
+
+
+def oracle_checks(ops, ref, fdrv, qdrv, fq_np, qq_np, log=say) -> dict:
+    """Phase 3e, the unfused search oracle (tests/test_pq.py:104-130 on the
+    card), with the launch counts reset before and read after.
+
+    Float: ``centroid_score`` -> a stable top-``nprobe`` ->
+    ``posting_scan_gather`` -> the cache scores -> a stable top-10 against
+    the fused ``search`` on the float state: the score lists within
+    ``TOL * scale``, and the ids identical except at near-ties (where the
+    ids differ at a rank, the fused pick's own score, recomputed in
+    float64, is within the tolerance of the oracle's score there).
+    Quant: ``pq_scan_gather`` on the search's own probes and tables -> a
+    stable top-``rerank_k`` equals ``pq_scan_topk``'s candidates and
+    scores exactly.  Each gather is also held against its plain version
+    on the same inputs.  Returns the launch counts and the inputs phase 4
+    times the two gathers on."""
+    from repro_torch.core import version_manager as vm
+    from repro_torch.core.search import search
+    from repro_torch.quant import pq
+
+    ops.reset_launch_counts()
+    st, cfg = fdrv.state, fdrv.cfg
+    q = torch.as_tensor(fq_np, device=fdrv.device)
+    Q, k = q.shape[0], 10
+    found, scores, _ = search(st, cfg, q, k)
+    vis = vm.visible(st.rec_meta, st.allocated, st.global_version)
+    _, pr = ref.stable_topk(ops.centroid_score(q, st.centroids, vis),
+                            cfg.nprobe)
+    ps = ops.posting_scan_gather(q, st.vectors, st.slot_valid, vis, pr)
+    cs = ops.centroid_score(q, st.cache_vecs, st.cache_valid)
+    all_s = torch.cat([ps.reshape(Q, -1), cs], 1)
+    all_i = torch.cat([st.ids[pr].reshape(Q, -1),
+                       st.cache_ids.expand(Q, -1)], 1)
+    want_s, idx = ref.stable_topk(all_s, k)
+    want = torch.where(want_s < 5e29, torch.gather(all_i, 1, idx), -1)
+    err = require_close("oracle: fused search scores vs unfused", scores,
+                        want_s)
+    tol = TOL * score_scale(want_s)
+    diff = found != want
+    if bool(diff.any()):
+        fid = found[diff].long()
+        loc = st.id_loc[fid.clamp(min=0)].long()
+        d = st.vectors.shape[-1]
+        v = torch.where((loc >= 0)[:, None],
+                        st.vectors.view(-1, d)[loc.clamp(min=0)],
+                        st.cache_vecs[(-2 - loc).clamp(min=0)]).double()
+        qd = q[torch.nonzero(diff)[:, 0]].double()
+        own = (v * v).sum(-1) - 2 * (qd * v).sum(-1)
+        gap = (own - want_s[diff].double()).abs()
+        if bool((fid < 0).any()) or bool((gap > tol).any()):
+            fail(f"oracle: fused search ids differ from the unfused "
+                 f"composition beyond near-ties (max gap "
+                 f"{float(gap.max()):.3g} > {tol:.3g})")
+    gather_err = require_close(
+        "posting_scan_gather, oracle inputs", ps,
+        ref.posting_scan_gather(q, st.vectors, st.slot_valid & vis[:, None],
+                                pr))
+    log(f"  float: fused search == unfused composition on {Q} queries "
+        f"(scores within {err:.3g} of tolerance {tol:.3g}; "
+        f"{int(diff.sum())} ids differ at near-ties); posting_scan_gather "
+        f"vs plain max err {gather_err:.3g}")
+
+    st, cfg = qdrv.state, qdrv.cfg
+    qq = torch.as_tensor(qq_np, device=qdrv.device)
+    _, _, probe = search(st, cfg, qq, k)
+    qvis = vm.visible(st.rec_meta, st.allocated, st.global_version)
+    luts = pq.lookup_tables(st.pq_codebooks, qq)
+    C = st.vectors.shape[1]
+    R = min(cfg.rerank_k, probe.shape[1] * C)
+    adc, cand = ops.pq_scan_topk(luts, st.codes, st.pq_posting_slot,
+                                 st.slot_valid, qvis, probe, k=R)
+    g = ops.pq_scan_gather(luts, st.codes, st.pq_posting_slot,
+                           st.slot_valid, qvis, probe)
+    gs, pos = ref.stable_topk(g.reshape(Q, -1), R)
+    flat = (probe.long()[:, :, None] * C
+            + torch.arange(C, device=qq.device)[None, None, :])
+    require_exact("oracle: pq_scan_topk vs pq_scan_gather + stable top-R",
+                  (adc, cand.long()),
+                  (gs, torch.gather(flat.reshape(Q, -1), 1, pos)))
+    V = luts.shape[1]
+    slot = st.pq_posting_slot.clamp(0, V - 1)
+    require_exact("pq_scan_gather, oracle inputs", (g,),
+                  (ref.pq_scan_gather(luts, st.codes, slot,
+                                      st.slot_valid & qvis[:, None], probe),))
+    counts = ops.launch_counts()
+    torch.cuda.synchronize()
+    log(f"  quant: pq_scan_topk == pq_scan_gather + stable top-{R} on {Q} "
+        f"queries (exact); launches {json.dumps(counts)}")
+    for name in PATH_KERNELS["oracle"]:
+        if counts[name] <= 0:
+            fail(f"kernel {name} was never launched on the oracle path")
+    return counts, dict(q=q, probe=pr, vis=vis, qq=qq, qprobe=probe,
+                        qvis=qvis, luts=luts)
+
+
+def tier_checks(drv, secs, quant_secs, steps: int, log=say) -> None:
+    """Phase 3f's end: the tier's counters, the memory split and search
+    seconds per batch beside the untiered quant path's; then 64 postings'
+    tiles copied, ``force_spill`` of the 64 coldest hot postings (those),
+    ``force_promote`` of every spilled posting, and the 64 restored bit
+    for bit; the spilled share restored with ``force_spill`` and the
+    residency invariant checked again."""
+    from repro_torch.core import version_manager as vm
+    from repro_torch.core.invariants import check_residency
+    st, tier = drv.state, drv.tier
+    tiers = drv.memory_tiers()
+    if tiers["device"] + tiers["host"] != drv.memory_bytes():
+        fail(f"memory_tiers {tiers} do not sum to {drv.memory_bytes()}")
+    log(f"  spilled share {100 * spilled_share(drv):.2f}%, pool "
+        f"{len(tier.pool)} tiles / {tier.pool.nbytes()} bytes; counters "
+        + json.dumps({k: drv.stats[k] for k in (
+            "tier_spilled", "tier_promoted", "tier_resident",
+            "search_spilled_hits")})
+        + f"; memory_tiers {json.dumps(tiers)} (untiered "
+        f"{drv.memory_bytes()})")
+    log(f"  search seconds per 256-query batch: tiered "
+        f"{secs['search'] / steps:.4f} (ADC + host rerank), untiered "
+        f"quant path {quant_secs['search'] / steps:.4f}; exact "
+        f"{secs['exact'] / steps:.4f} (device scan + host pool scan), "
+        f"untiered {quant_secs['exact'] / steps:.4f}; host seconds, "
+        "calls: " + ", ".join(f"{k} {v[0]:.4f}, {v[1]}"
+                              for k, v in tier.host_s.items()))
+    n_spilled = len(tier.pool)
+    pids = tier.planner.force_spills(
+        64, st.heat.cpu().numpy(), st.tier_spilled.cpu().numpy(),
+        st.allocated.cpu().numpy(),
+        vm.unpack_status(st.rec_meta).cpu().numpy())
+    idx = torch.as_tensor(pids.astype(np.int64), device=drv.device)
+    before = st.vectors[idx].clone()
+    if not bool(before.any()):
+        fail("tier round trip: the 64 tiles are all zero")
+    was = st.tier_spilled.clone()
+    if drv.force_spill(64) != 64:
+        fail("force_spill(64) did not spill 64 postings")
+    now = torch.nonzero(drv.state.tier_spilled & ~was)[:, 0]
+    if not torch.equal(now, idx.sort().values):
+        fail("force_spill(64) spilled other postings than the 64 coldest")
+    if bool(drv.state.vectors[idx].any()):
+        fail("force_spill left a device tile nonzero")
+    n = drv.force_promote()
+    if n != n_spilled + 64 or bool(drv.state.tier_spilled.any()):
+        fail(f"force_promote moved {n}, expected {n_spilled + 64}")
+    if not torch.equal(drv.state.vectors[idx], before):
+        fail("spill + promote did not restore the 64 tiles bit for bit")
+    log(f"  64 tiles spilled and promoted (with {n_spilled} others): "
+        "bit-identical")
+    drv.force_spill(n_spilled)
+    check_residency(drv.state, drv.cfg, tier.pool)
+    log(f"  respilled {n_spilled}: share {100 * spilled_share(drv):.2f}%, "
+        "residency invariant holds")
 
 
 def plain_attention(ref):
@@ -855,6 +1115,59 @@ def time_quant_kernels(ops, ref, qdrv, fdrv, q_np, counts) -> list:
     return rows
 
 
+def time_gathers(ops, ref, fdrv, qdrv, x, counts) -> list:
+    """The two gather kernels on phase 3e's inputs: the float state's
+    (256 queries x 32 probes x 96 slots x 128-d) and the quant state's
+    (PQ16 tables of both codebook slots).  Bounds count only the distinct
+    probed tiles, each read once, and the (Q, P, C) output.  The library
+    yardstick of ``posting_scan_gather`` is ``torch.baddbmm`` over the
+    probed tiles and their norms gathered by ``index_select`` inside the
+    timed call; ``pq_scan_gather`` has none (no single PyTorch call does a
+    per-code table-lookup sum)."""
+    rows = []
+    st = fdrv.state
+    q, pr, vis = x["q"], x["probe"], x["vis"]
+    M, C, d = st.vectors.shape
+    Q, P = pr.shape
+    U = int(torch.unique(pr).numel())
+    flat_pr = pr.reshape(-1).long()
+    vn = (st.vectors * st.vectors).sum(-1)                    # (M, C)
+    valid = st.slot_valid & vis[:, None]
+    rows.append(timed_row(
+        ops, counts, "posting_scan_gather",
+        lambda: ops.posting_scan_gather(q, st.vectors, st.slot_valid, vis,
+                                        pr),
+        lambda: ref.posting_scan_gather(q, st.vectors, valid, pr),
+        lambda: torch.baddbmm(
+            vn.index_select(0, flat_pr).view(Q, P * C, 1),
+            st.vectors.index_select(0, flat_pr).view(Q, P * C, d),
+            q[:, :, None], alpha=-2),
+        lambda a, b: require_close("posting_scan_gather, timed inputs", a,
+                                   b),
+        4.0 * Q * P * C * d,
+        4.0 * Q * d + U * C * (4.0 * d + 1) + 4.0 * Q * P + 4.0 * Q * P * C))
+    st = qdrv.state
+    luts, qpr, qvis = x["luts"], x["qprobe"], x["qvis"]
+    V, m, ksub = luts.shape[1:]
+    U = int(torch.unique(qpr).numel())
+    slot = st.pq_posting_slot.clamp(0, V - 1)
+    qvalid = st.slot_valid & qvis[:, None]
+
+    def exact(a, b):
+        require_exact("pq_scan_gather, timed inputs", (a,), (b,))
+        return 0.0
+
+    rows.append(timed_row(
+        ops, counts, "pq_scan_gather",
+        lambda: ops.pq_scan_gather(luts, st.codes, st.pq_posting_slot,
+                                   st.slot_valid, qvis, qpr),
+        lambda: ref.pq_scan_gather(luts, st.codes, slot, qvalid, qpr),
+        None, exact, 1.0 * Q * P * C * m,
+        4.0 * luts.numel() + U * C * (m + 1.0) + 4.0 * M + 4.0 * Q * P
+        + 4.0 * Q * P * C))
+    return rows
+
+
 def sdpa_backend(fn) -> tuple:
     """The backend a ``scaled_dot_product_attention`` call dispatched to,
     read off the names of the device kernels one call launches under
@@ -920,14 +1233,65 @@ def time_attention(ops, ref, dev, counts, seed: int) -> dict:
     return row
 
 
-def profile_windows(drv, stream, qdrv, qstream, embed_batch) -> dict:
-    """Device time by kernel over four windows, with ``torch.profiler``:
+def copy_overlap(prof) -> dict:
+    """The tier's copies in a profiled window, from its Chrome trace:
+    per stream the device copies (count, microseconds, by direction) and
+    the kernels' count; ``overlap_us``, the copy time on streams other
+    than the one with the most kernels (the tier's side stream) that ran
+    while a kernel ran on that main stream."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    per, kern = {}, {}
+    for ev in events:
+        cat = str(ev.get("cat", "")).lower()
+        if ev.get("ph") != "X" or cat not in ("kernel", "gpu_memcpy"):
+            continue
+        sid = (ev.get("args") or {}).get("stream", ev.get("tid"))
+        span = (float(ev["ts"]), float(ev["ts"]) + float(ev.get("dur", 0)))
+        if cat == "kernel":
+            kern.setdefault(sid, []).append(span)
+            continue
+        name = str(ev.get("name", ""))
+        way = ("DtoH" if "DtoH" in name else "HtoD" if "HtoD" in name
+               else "DtoD")
+        row = per.setdefault(sid, {})
+        n, us = row.get(way, (0, 0.0))
+        row[way] = (n + 1, us + span[1] - span[0])
+        row.setdefault("spans", []).append(span)
+    main = max(kern, key=lambda k: len(kern[k])) if kern else None
+    busy = sorted(kern.get(main, []))
+    overlap = 0.0
+    for sid, row in per.items():
+        if sid == main:
+            continue
+        for a, b in row["spans"]:
+            for c, e in busy:
+                if c >= b:
+                    break
+                overlap += max(0.0, min(b, e) - max(a, c))
+    streams = {str(sid): {k: v for k, v in row.items() if k != "spans"}
+               for sid, row in per.items()}
+    for sid, spans in kern.items():
+        streams.setdefault(str(sid), {})["kernels"] = len(spans)
+    return {"main_stream": str(main), "streams": streams,
+            "overlap_us": overlap}
+
+
+def profile_windows(drv, stream, qdrv, qstream, tdrv, tstream,
+                    embed_batch) -> dict:
+    """Device time by kernel over five windows, with ``torch.profiler``:
     on the float path one load chunk (20k inserts, then ticks until
     quiescent) and one streaming step (20k inserts, 10k deletes, a tick,
-    a 256-query search); on the quant path one streaming step; on the
-    serving path one embedded batch of 64 x 512 tokens.  The busy
-    share is device time over wall time (one stream, so kernels do not
-    overlap); the wall time includes the profiler's own host overhead."""
+    a 256-query search); on the quant path and on the tiered path one
+    streaming step each; on the serving path one embedded batch of 64 x
+    512 tokens.  The busy share is device time over wall time (kernels of
+    one stream do not overlap; on the tiered path the tier's copies run
+    on a side stream, reported apart with their overlap); the wall time
+    includes the profiler's own host overhead."""
     from torch.profiler import ProfilerActivity, profile
 
     def dev_us(ev):
@@ -954,6 +1318,7 @@ def profile_windows(drv, stream, qdrv, qstream, embed_batch) -> dict:
     for name, fn in (("load_chunk", load_chunk),
                      ("stream_step", lambda: step(drv, stream)),
                      ("quant_stream_step", lambda: step(qdrv, qstream)),
+                     ("tier_stream_step", lambda: step(tdrv, tstream)),
                      ("serve_embed_batch", embed_batch)):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -979,6 +1344,11 @@ def profile_windows(drv, stream, qdrv, qstream, embed_batch) -> dict:
             f"({100 * busy / wall:.1f}%)")
         for k, ms, c in rows[:6]:
             say(f"    {ms:9.3f} ms  {c:6d} calls  {k[:70]}")
+        if name == "tier_stream_step":
+            windows[name]["copies"] = cp = copy_overlap(prof)
+            say(f"    tier copies by stream (main {cp['main_stream']}): "
+                f"{json.dumps(cp['streams'])}; side-stream copy time "
+                f"overlapping main-stream kernels {cp['overlap_us']:.1f} us")
     return windows
 
 
@@ -1041,7 +1411,7 @@ def main() -> None:
         say("  recall@10 on harder queries (alpha * centre + N(0, I), not "
             "gated): " + ", ".join(f"alpha={a}: {r:.4f}"
                                    for a, r in hard.items()))
-        paths[label] = (drv, q, recalls, stream)
+        paths[label] = (drv, q, recalls, stream, secs)
         counts = {k: counts.get(k, 0) + v for k, v in launched.items()}
     say("  recall@10 per step (gated >= 0.9 on both paths): float "
         f"{paths['float'][2]}, quant {paths['quant'][2]}")
@@ -1049,6 +1419,32 @@ def main() -> None:
     say("  recall@10 of the last step's queries on the quant state (not "
         f"gated): ADC + rerank {paths['quant'][2][-1]:.4f}, float-plane "
         f"search {float_plane_recall(qdrv, qq):.4f}")
+
+    say("phase 3e: the unfused search oracle on the float and quant states")
+    launched, oracle_in = oracle_checks(ops, ref, paths["float"][0], qdrv,
+                                        paths["float"][1], qq)
+    counts = {k: counts.get(k, 0) + v for k, v in launched.items()}
+
+    say(f"phase 3f: tiered path (use_tier, tier_async, 256 moves per tick, "
+        f"tier_hot_max {TIER_HOT_MAX}, a re-train every {TIER_RETRAIN_EVERY} "
+        "ticks), the quant path's configuration and data")
+    ops.reset_launch_counts()
+    tdrv, tq, tsecs, trecalls, tstream = main_path(
+        dev, n=1_000_000, dim=128, max_postings=65504, cache_capacity=4096,
+        steps=5, fresh=20000, dels=10000, queries=256, chunk=20000,
+        seed=args.seed, round_size=2048, bg_ops=64, quant=True,
+        pq_retrain_every=TIER_RETRAIN_EVERY, tier_hot_max=TIER_HOT_MAX,
+        data=QUANT_DATA)
+    launched = ops.launch_counts()
+    say(f"  seconds per phase: {json.dumps({k: round(v, 3) for k, v in tsecs.items()})}")
+    say(f"  launches on the tier path: {json.dumps(launched)}")
+    for name in PATH_KERNELS["tier"]:
+        if launched[name] <= 0:
+            fail(f"kernel {name} was never launched on the tier path")
+    counts = {k: counts.get(k, 0) + v for k, v in launched.items()}
+    say(f"  recall@10 per step (gated >= 0.9): tiered {trecalls}, untiered "
+        f"quant {paths['quant'][2]}")
+    tier_checks(tdrv, tsecs, paths["quant"][4], len(trecalls))
 
     say("phase 3c: the quant path on the float path's data (1 step, not "
         "gated)")
@@ -1065,10 +1461,11 @@ def main() -> None:
     counts = {k: counts.get(k, 0) + v for k, v in launched.items()}
 
     say("phase 4: kernel times on the main paths' inputs")
-    fdrv, fq, _, fstream = paths["float"]
-    qdrv, qq, _, qstream = paths["quant"]
+    fdrv, fq, _, fstream, _ = paths["float"]
+    qdrv, qq, _, qstream, _ = paths["quant"]
     rows = time_kernels(ops, ref, fdrv, fq, counts)
     rows += time_quant_kernels(ops, ref, qdrv, fdrv, qq, counts)
+    rows += time_gathers(ops, ref, fdrv, qdrv, oracle_in, counts)
     rows.append(time_attention(ops, ref, dev, counts, args.seed))
     for r in rows:
         say(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
@@ -1076,8 +1473,9 @@ def main() -> None:
             f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}), "
             f"launches {r['launches']}, max err {r['max_abs_err']:.3g}")
     say("phase 4b: device time by kernel (torch.profiler)")
-    profile_windows(fdrv, fstream, qdrv, qstream,
+    profile_windows(fdrv, fstream, qdrv, qstream, tdrv, tstream,
                     lambda: server.embedder.embed(toks))
+    tdrv.close()
     say(smi)
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {

@@ -20,7 +20,7 @@ ENGINES = ("ubis", "spfresh")
 _UBIS_KW = frozenset({
     "seed", "round_size", "bg_ops_per_round", "drain_per_tick",
     "fused_tick", "device", "kmeans_init", "pq_retrain_every", "pq_init",
-    "pq_keys", "obs"})
+    "pq_keys", "tier_moves_per_tick", "tier_async", "obs"})
 
 
 def make_index(engine: str, cfg: UBISConfig, seed_vectors, **kw):

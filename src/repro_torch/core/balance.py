@@ -28,8 +28,7 @@ from ..quant import pq
 from . import version_manager as vm
 from .types import (KIND_COMPACT, KIND_MERGE, KIND_NONE, KIND_SPLIT, NO_ID,
                     NO_SUCC, STATUS_DELETED, STATUS_MERGING, STATUS_NORMAL,
-                    STATUS_SPLITTING, BackgroundRound, IndexState, UBISConfig,
-                    require_untiered)
+                    STATUS_SPLITTING, BackgroundRound, IndexState, UBISConfig)
 from .update import (_flat, batched_append, cache_append, free_postings)
 from .version_manager import masked_add_, masked_set_
 
@@ -316,7 +315,6 @@ def background_round(state: IndexState, cfg: UBISConfig, kinds, pids):
     merge) in an earlier round.  Updates ``state`` in place; returns
     (state, BackgroundRound).  The JAX package's ``use_cache=False`` (the
     sharded plane) is not ported yet."""
-    require_untiered(cfg)
     dev = state.device
     B = kinds.shape[0]
     C, d = cfg.capacity, cfg.dim
@@ -441,6 +439,13 @@ def background_round(state: IndexState, cfg: UBISConfig, kinds, pids):
     rec_succ = masked_set_(state.rec_succ.clone(), new_pids,
                            (NO_SUCC << 16) | NO_SUCC, np_ok)
     allocated = masked_set_(state.allocated.clone(), new_pids, True, np_ok)
+    if cfg.use_tier:
+        # cold tier: every touch counter halves once a round (the half-life
+        # the tier planner's cold threshold reads), the round's children
+        # take their parent's decayed heat and are born float-resident
+        state.heat = state.heat >> 1
+        masked_set_(state.heat, new_pids, state.heat[safe.repeat(2)], np_ok)
+        masked_set_(state.tier_spilled, new_pids, False, np_ok)
 
     masked_set_(state.vectors, w_pid, w_rows.to(state.vectors.dtype), w_valid)
     masked_set_(state.ids, w_pid, w_rids, w_valid)

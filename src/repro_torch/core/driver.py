@@ -28,12 +28,12 @@ import torch
 from ..api.types import SearchResult, TickReport, UpdateResult
 from ..obs import Obs
 from ..quant import pq
-from . import balance, search as search_mod, update
+from . import balance, search as search_mod, tier as tier_mod, update
 from . import version_manager as vm
 from .build import SAMPLE_CAP, initial_posting_count, initial_state
 from .types import (KIND_COMPACT, KIND_MERGE, KIND_SPLIT, STATUS_MERGING,
                     STATUS_SPLITTING, IndexState, UBISConfig,
-                    require_untiered, state_memory_bytes)
+                    state_memory_bytes)
 
 KIND_CODES = {"split": KIND_SPLIT, "merge": KIND_MERGE,
               "compact": KIND_COMPACT}
@@ -80,14 +80,20 @@ def _pad_rows(t: torch.Tensor, pad: int, value) -> torch.Tensor:
 
 @dataclasses.dataclass
 class SearchDispatch:
-    """An in-flight search: launched on the device, not yet awaited."""
+    """An in-flight search: launched on the device, not yet awaited.  With
+    the cold tier, the found ids' locations and the spill flags are
+    captured at dispatch too (the rounds update the state in place), so
+    the host rerank in ``collect_search`` answers for the index as of
+    dispatch, as the JAX package's captured state does."""
 
     queries: np.ndarray
     k: int
-    found: Any                       # device (Q, k) int32
-    scores: Any                      # device (Q, k) f32
+    found: Any                       # device (Q, k_eff) int32
+    scores: Any                      # device (Q, k_eff) f32
     probe: Any                       # device probed pids
     t0: float
+    loc: Any = None                  # device (Q, k_eff) id_loc of found
+    spilled: Any = None              # device (M,) tier_spilled
 
 
 class UBISDriver:
@@ -101,6 +107,10 @@ class UBISDriver:
     in [0, 1), one per re-train, that pick its sample (default: drawn
     from a ``torch.Generator`` seeded from ``seed``).  ``obs``: the
     observability plane to report into (default: a new ``Obs()``).
+    With ``cfg.use_tier``: ``tier_moves_per_tick``, the planner's batch
+    width; ``tier_async``, dispatch the tick's spill/promote copies at
+    tick start (overlapping the background round) and commit them at
+    tick end.  The host exact rerank of spilled candidates is always on.
     ``fused_tick=True`` (device-side candidate selection) belongs to a
     later slice and raises.
     """
@@ -110,8 +120,8 @@ class UBISDriver:
                  bg_ops_per_round: int = 4, drain_per_tick: int = 256,
                  fused_tick: bool = False, pq_retrain_every: int = 32,
                  device=None, kmeans_init=None, pq_init=None,
-                 pq_keys=None, obs: Optional[Obs] = None):
-        require_untiered(cfg)
+                 pq_keys=None, tier_moves_per_tick: int = 32,
+                 tier_async: bool = False, obs: Optional[Obs] = None):
         if fused_tick:
             raise NotImplementedError(
                 "fused_tick=True (balance.mark_round) belongs to a later "
@@ -150,6 +160,12 @@ class UBISDriver:
         self._sp_split: set[int] = set()
         self._sp_merge: set[int] = set()
         self.stats = self.obs.driver_stats()
+        # cold tier (cfg.use_tier): host pool + planner + copy stream
+        self.tier = (tier_mod.TierManager(
+            cfg, self.device, max_moves=int(tier_moves_per_tick),
+            obs=self.obs) if cfg.use_tier else None)
+        self.tier_async = bool(tier_async)
+        self._bg_ran = False
 
     def _dev(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
@@ -197,6 +213,8 @@ class UBISDriver:
                 acc, cac, rej = flags
                 n_acc += int(acc.sum())
                 n_cache += int(cac.sum())
+                if self.tier is not None:       # appends heat their target
+                    self.tier.note_targets(res.target.cpu().numpy()[acc])
                 if rej.any():
                     rej_v.append(cv[rej])
                     rej_i.append(ci[rej])
@@ -261,15 +279,32 @@ class UBISDriver:
         round's."""
         queries = np.asarray(queries, np.float32)
         t0 = time.perf_counter()
+        # the host rerank needs the full rerank budget: the device top-k
+        # orders spilled candidates by their ADC scores
+        k_eff = max(k, self.cfg.rerank_k) if self.tier is not None else k
         found, scores, probe = search_mod.search(
-            self.state, self.cfg, self._dev(queries), k, nprobe)
-        return SearchDispatch(queries=queries, k=k, found=found,
+            self.state, self.cfg, self._dev(queries), k_eff, nprobe)
+        disp = SearchDispatch(queries=queries, k=k, found=found,
                               scores=scores, probe=probe, t0=t0)
+        if self.tier is not None:
+            disp.loc = self.state.id_loc[
+                found.long().clamp(0, self.cfg.max_ids - 1)]
+            disp.spilled = self.state.tier_spilled.clone()
+        return disp
 
     def collect_search(self, disp: SearchDispatch) -> SearchResult:
         found = disp.found.cpu().numpy()
         scores = disp.scores.cpu().numpy()
         probe = disp.probe.cpu().numpy()
+        if self.tier is not None:
+            # probes are the search-heat signal (promote trigger); spilled
+            # candidates get their exact score from the host pool
+            self.tier.note_probes(probe)
+            found, scores, n_sp = self.tier.rerank(
+                disp.queries, found, scores, disp.loc.cpu().numpy(),
+                disp.spilled.cpu().numpy())
+            self.stats["search_spilled_hits"] += n_sp
+            found, scores = found[:, :disp.k], scores[:, :disp.k]
         dt = time.perf_counter() - disp.t0
         self.stats["search_time"] += dt
         self.stats["queries"] += disp.queries.shape[0]
@@ -289,15 +324,29 @@ class UBISDriver:
 
     def tick(self) -> TickReport:
         """One background round: execute marked ops, drain the cache,
-        detect + mark new candidates, GC, and (quant plane) re-train the
-        PQ codebooks on cadence."""
+        detect + mark new candidates, GC, (quant plane) re-train the PQ
+        codebooks on cadence, and (cold tier) run the spill/promote
+        planner."""
         t0 = time.perf_counter()
+        plan = None
+        if self.tier is not None and self.tier_async:
+            # tick-start dispatch: the copies run while the background
+            # round executes; whether the round carries the heat decay is
+            # known now (the batch was marked last tick)
+            self.state, plan = self.tier.dispatch(
+                self.state, decayed=bool(self._marked))
         executed = self._execute_marked()
         self.stats["bg_exec_time"] += time.perf_counter() - t0
         drained = self._drain_cache() if self.cfg.is_ubis else 0
         marked = self._mark_candidates()
         reclaimed = self._gc()
         retrained = self._pq_retrain()
+        if self.tier is not None and self.tier_async:
+            self.state, spilled, promoted = self.tier.reconcile(self.state,
+                                                                plan)
+            self._note_tier(spilled, promoted)
+        else:
+            spilled, promoted = self._tier_step()
         dt = time.perf_counter() - t0
         self.stats["bg_time"] += dt
         self.stats["bg_ops"] += executed
@@ -305,17 +354,21 @@ class UBISDriver:
         self.stats["drained"] += drained
         self.obs.emit("tick", executed=executed, drained=drained,
                       marked=marked, gc=reclaimed, pq=retrained,
+                      spilled=spilled, promoted=promoted,
                       seconds=round(dt, 6))
         return TickReport(executed=executed, drained=drained, marked=marked,
-                          gc=reclaimed, pq_retrained=retrained, seconds=dt)
+                          gc=reclaimed, pq_retrained=retrained,
+                          spilled=spilled, promoted=promoted, seconds=dt)
 
     def flush(self, max_ticks: int = 200) -> int:
         """Tick until quiescent (no marked ops, no due candidates, cache
-        empty).  Returns the number of ticks."""
+        empty, no tier moves: a forced promotion gets its structural op
+        before flush returns).  Returns the number of ticks."""
         for i in range(max_ticks):
             r = self.tick()
             cache_n = int(self.state.cache_valid.sum())
             if (r.executed == 0 and r.marked == 0
+                    and r.spilled == 0 and r.promoted == 0
                     and (cache_n == 0 or not self.cfg.is_ubis)):
                 return i + 1
         return max_ticks
@@ -323,6 +376,7 @@ class UBISDriver:
     def _execute_marked(self) -> int:
         """Execute the whole marked batch as ONE background round; the
         only transfer back is the small ``BackgroundRound`` struct."""
+        self._bg_ran = False
         marked, self._marked = self._marked, []
         self._marked_set.clear()
         if not marked:
@@ -337,6 +391,7 @@ class UBISDriver:
             pids_np[i] = pid
         self.state, rr = balance.background_round(
             self.state, self.cfg, self._dev(kinds_np), self._dev(pids_np))
+        self._bg_ran = True        # the round carried the heat decay
         rr = rr.to_host()
         self.stats["bg_split"] += rr["n_split"]
         self.stats["bg_merge"] += rr["n_merge"]
@@ -440,6 +495,7 @@ class UBISDriver:
         self._ticks += 1
         if self._ticks % self.pq_retrain_every:
             return 0
+        self._promote_retrain_pinned()
         M, C, _ = self.state.vectors.shape
         if self._pq_keys is not None:
             keys = self._dev(np.array(next(self._pq_keys), np.float32))
@@ -454,6 +510,46 @@ class UBISDriver:
         self.obs.emit("pq_retrain", reason="cadence", evicted_slot=evict,
                       generation=int(self.stats["pq_generation"]))
         return 1
+
+    def _promote_retrain_pinned(self) -> None:
+        """Cold tier x quant plane: promote the spilled postings pinned to
+        the codebook slot the re-train is about to evict."""
+        if self.tier is None:
+            return
+        self.state, n = self.tier.promote_retrain_pinned(self.state)
+        self.stats["tier_promoted"] += n
+
+    def _note_tier(self, spilled: int, promoted: int) -> None:
+        self.stats["tier_spilled"] += spilled
+        self.stats["tier_promoted"] += promoted
+        self.stats["tier_resident"] = len(self.tier.pool)
+
+    def _tier_step(self) -> tuple:
+        """Cold tier, synchronous shape: apply the touches, plan and move
+        at tick end.  Returns (spilled, promoted)."""
+        if self.tier is None:
+            return 0, 0
+        self.state, n_s, n_p = self.tier.tick(self.state,
+                                              decayed=self._bg_ran)
+        self._note_tier(n_s, n_p)
+        return n_s, n_p
+
+    def force_spill(self, n: int) -> int:
+        """Spill the ``n`` coldest hot postings now (test and benchmark
+        hook; the planner's watermark path uses the same machinery)."""
+        if self.tier is None:
+            return 0
+        self.state, moved = self.tier.force_spill(self.state, n)
+        self._note_tier(moved, 0)
+        return moved
+
+    def force_promote(self, n=None) -> int:
+        """Promote up to ``n`` spilled postings (all when None)."""
+        if self.tier is None:
+            return 0
+        self.state, moved = self.tier.force_promote(self.state, n)
+        self._note_tier(0, moved)
+        return moved
 
     # ---- SPFresh strict-trigger bookkeeping ---------------------------
 
@@ -473,24 +569,43 @@ class UBISDriver:
 
     def snapshot(self) -> IndexState:
         """A copy of the state (the rounds update the live one in place,
-        so a snapshot must not alias it)."""
-        return IndexState(**{f.name: getattr(self.state, f.name).clone()
+        so a snapshot must not alias it).  With the cold tier the spilled
+        float tiles are written into the copy (flags stay set), so the
+        snapshot is self-contained; ``load_snapshot`` re-derives
+        residency from the flags."""
+        snap = IndexState(**{f.name: getattr(self.state, f.name).clone()
                              for f in dataclasses.fields(IndexState)})
+        if self.tier is not None:
+            snap = self.tier.snapshot_fill(snap)
+        return snap
 
     def load_snapshot(self, state: IndexState) -> "UBISDriver":
         """Adopt a ``snapshot()`` state; the driver takes ownership of its
-        tensors.  Returns self."""
+        tensors.  With the cold tier, spilled tiles move back to the host
+        pool and their device copies are re-zeroed.  Returns self."""
+        if self.tier is not None:
+            state = self.tier.adopt(state)
         self.state = state
         self._marked = []
         self._marked_set.clear()
         return self
 
     def memory_bytes(self) -> int:
+        """Bytes held by the index across both tiers (the untiered total;
+        ``memory_tiers`` gives the device/host split)."""
         return state_memory_bytes(self.state)
+
+    def memory_tiers(self) -> dict:
+        """Device/host byte split; sums to ``memory_bytes()``."""
+        if self.tier is not None:
+            return self.tier.memory_tiers(self.state)
+        return {"device": self.memory_bytes(), "host": 0}
 
     def exact(self, queries, k: int) -> SearchResult:
         """Exact top-k over the index's live contents (recall oracle),
-        scanned in query chunks that keep each score block near 1 GiB."""
+        scanned in query chunks that keep each score block near 1 GiB.
+        With the cold tier, spilled postings are scanned on the host from
+        the pool and merged with the device scan."""
         queries = np.asarray(queries, np.float32)
         M, C, _ = self.state.vectors.shape
         width = M * C + self.cfg.cache_capacity
@@ -501,8 +616,11 @@ class UBISDriver:
                 self.state, self.cfg, self._dev(queries[off:off + chunk]), k)
             ids.append(f.cpu().numpy())
             scores.append(s.cpu().numpy())
-        return SearchResult(ids=np.concatenate(ids),
-                            scores=np.concatenate(scores))
+        found, scores = np.concatenate(ids), np.concatenate(scores)
+        if self.tier is not None:
+            found, scores = self.tier.exact_merge(self.state, queries, found,
+                                                  scores, k)
+        return SearchResult(ids=found, scores=scores)
 
     def posting_lengths(self) -> np.ndarray:
         from .metrics import live_posting_lengths
@@ -516,3 +634,8 @@ class UBISDriver:
     def throughput(self) -> dict:
         from .metrics import throughput_from_stats
         return throughput_from_stats(self.stats)
+
+    def close(self) -> None:
+        """Release the cold tier's host pool and copy stream (its pinned
+        memory).  The index must not be used afterwards."""
+        self.tier = None

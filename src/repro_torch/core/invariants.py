@@ -12,15 +12,20 @@ runs at a realistic size on the card:
 * the free stack holds distinct, unallocated postings and, with the
   allocated ones, accounts for the whole pool;
 * with ``use_pq``, the quant invariant of ``tests/test_pq.py``: for
-  every valid slot of every live posting, ``codes[p, :, c] ==
-  encode(codebooks[pq_posting_slot[p]], vectors[p, c])``.
+  every valid slot of every live float-resident posting, ``codes[p, :,
+  c] == encode(codebooks[pq_posting_slot[p]], vectors[p, c])``;
+* with ``use_tier``, :func:`check_residency` (the counterpart of
+  ``_audit_residency`` in ``tests/test_tier.py``): a spilled posting's
+  device tile is all zero and its pool tile encodes to its codes, a hot
+  posting is not pooled, the pool holds one tile per spilled posting.
 """
 from __future__ import annotations
 
 import torch
 
 from ..quant import pq
-from .types import STATUS_DELETED, IndexState, UBISConfig
+from .types import (STATUS_DELETED, IndexState, UBISConfig,
+                    state_memory_bytes, state_tier_bytes)
 
 CODES_CHUNK = 4096     # postings re-encoded at a time by check_codes
 
@@ -74,18 +79,65 @@ def check_invariants(state: IndexState, cfg: UBISConfig) -> None:
         check_codes(state, cfg)
 
 
-def check_codes(state: IndexState, cfg: UBISConfig) -> None:
-    """The quant invariant: every valid slot of every live posting holds
-    the code of its float vector under the posting's codebook slot."""
-    live_p = state.allocated & ((state.rec_meta & 3) != STATUS_DELETED)
+def _check_tiles(state: IndexState, cfg: UBISConfig, pids: torch.Tensor,
+                 tiles_of, where: str) -> None:
+    """Every valid slot of postings ``pids`` holds the code of its float
+    vector (``tiles_of(p)``: the float tiles of pids ``p``) under the
+    posting's codebook slot."""
+    slot = state.pq_posting_slot[pids]
     for s in range(cfg.pq_versions):
-        pids = torch.nonzero(live_p & (state.pq_posting_slot == s))[:, 0]
-        for off in range(0, pids.numel(), CODES_CHUNK):
-            p = pids[off:off + CODES_CHUNK]
+        sel = pids[slot == s]
+        for off in range(0, sel.numel(), CODES_CHUNK):
+            p = sel[off:off + CODES_CHUNK]
             want = pq.encode_tiles(state.pq_codebooks[s],
-                                   state.vectors[p].float())    # (b, m, C)
+                                   tiles_of(p).float())         # (b, m, C)
             bad = (want != state.codes[p]) & state.slot_valid[p][:, None, :]
             if bool(bad.any()):
                 first = int(p[torch.nonzero(bad.any(-1).any(-1))[0, 0]])
-                _fail(f"codes diverged from the float plane at posting "
+                _fail(f"codes diverged from the {where} at posting "
                       f"{first} (codebook slot {s})")
+
+
+def check_codes(state: IndexState, cfg: UBISConfig) -> None:
+    """The quant invariant: every valid slot of every live float-resident
+    posting holds the code of its float vector under the posting's
+    codebook slot (spilled postings: :func:`check_residency`)."""
+    live_p = state.allocated & ((state.rec_meta & 3) != STATUS_DELETED)
+    pids = torch.nonzero(live_p & ~state.tier_spilled)[:, 0]
+    _check_tiles(state, cfg, pids, lambda p: state.vectors[p],
+                 "float plane")
+
+
+def check_residency(state: IndexState, cfg: UBISConfig, pool) -> None:
+    """The cold tier's residency invariant against the host ``pool``
+    (``core/tier.HostTierPool``): every live spilled posting's device
+    tile is all zero and its pool tile encodes to its codes under its
+    pinned codebook slot; no hot posting is pooled; the pool holds one
+    tile per spilled posting, so the host bytes of ``state_tier_bytes``
+    are the pool's and device + host is the untiered total."""
+    live_p = state.allocated & ((state.rec_meta & 3) != STATUS_DELETED)
+    spilled = state.tier_spilled
+    if bool((spilled & ~live_p).any()):
+        _fail("a retired or free posting is flagged spilled")
+    sp = torch.nonzero(spilled)[:, 0]
+    pooled = torch.as_tensor(pool.pids(), dtype=torch.int64,
+                             device=state.device)
+    if not torch.equal(sp, pooled):
+        in_pool = torch.zeros_like(spilled)
+        in_pool[pooled] = True
+        hot = torch.nonzero(in_pool & ~spilled)[:, 0]
+        if hot.numel():
+            _fail(f"hot posting {int(hot[0])} still pooled")
+        _fail(f"spilled posting {int(sp[~in_pool[sp]][0])} missing from "
+              "the pool")
+    if bool(state.vectors[sp].any()):
+        _fail("a spilled posting's device tile is not zeroed")
+    dev = state.device
+    _check_tiles(state, cfg, sp,
+                 lambda p: pool.tiles(p.cpu().numpy()).to(dev),
+                 "pooled float tile")
+    tiers = state_tier_bytes(state)
+    if tiers["host"] != pool.nbytes():
+        _fail(f"host bytes {tiers['host']} != the pool's {pool.nbytes()}")
+    if tiers["device"] + tiers["host"] != state_memory_bytes(state):
+        _fail("device + host bytes differ from the untiered total")

@@ -18,7 +18,7 @@ from ..kernels import ops
 from ..kernels.ref import BIG, stable_topk
 from ..quant import pq
 from . import version_manager as vm
-from .types import IndexState, UBISConfig, require_untiered
+from .types import IndexState, UBISConfig
 
 
 def search(state: IndexState, cfg: UBISConfig, queries: torch.Tensor,
@@ -28,7 +28,6 @@ def search(state: IndexState, cfg: UBISConfig, queries: torch.Tensor,
     Scores follow the kernel convention ``||v||^2 - 2 q.v``; add
     ``||q||^2`` for true squared distances.  ``probe`` feeds SPFresh's
     search-triggered merge rule."""
-    require_untiered(cfg)
     if nprobe is None:
         nprobe = cfg.nprobe
     queries = queries.to(torch.float32)

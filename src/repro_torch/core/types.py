@@ -76,7 +76,7 @@ class UBISConfig:
     pq_versions: int = 2
     pq_sample: int = 2048
     rerank_k: int = 64
-    # --- cold-tier host spill (a later slice) ----------------------------
+    # --- cold-tier host spill (core/tier.py) -----------------------------
     use_tier: bool = False
     tier_hot_max: int = 0
     tier_cold_heat: int = 1
@@ -113,16 +113,6 @@ class UBISConfig:
     @property
     def is_ubis(self) -> bool:
         return self.mode == "ubis"
-
-
-def require_untiered(cfg: UBISConfig) -> None:
-    """The port runs the float and the quant plane; the cold tier raises
-    instead of being silently ignored."""
-    if cfg.use_tier:
-        raise NotImplementedError(
-            "use_tier=True: the cold tier (core/tier.py: spill, promote, the "
-            "host pool) is the port's next slice after the quant plane; it "
-            "is not ported yet")
 
 
 @dataclasses.dataclass
@@ -164,9 +154,9 @@ class IndexState:
     pq_slot_gen: torch.Tensor    # (V,) int64
     pq_active: torch.Tensor      # () int32
     pq_posting_slot: torch.Tensor  # (M,) int32
-    # --- cold-tier residency (all False until the cold tier is ported) -----
-    heat: torch.Tensor           # (M,) int64 touch counter
-    tier_spilled: torch.Tensor   # (M,) bool
+    # --- cold-tier residency (use_tier) ------------------------------------
+    heat: torch.Tensor           # (M,) int64 touch counter (uint32 values)
+    tier_spilled: torch.Tensor   # (M,) bool float tile in the host pool
 
     @property
     def device(self) -> torch.device:
@@ -258,3 +248,19 @@ def state_memory_bytes(state: IndexState) -> int:
     return int(sum(t.numel() * t.element_size()
                    for t in (getattr(state, f.name)
                              for f in dataclasses.fields(state))))
+
+
+def tile_bytes(state: IndexState) -> int:
+    """Bytes of one float posting tile (the unit the cold tier moves)."""
+    return int(state.vectors[0].numel() * state.vectors.element_size())
+
+
+def state_tier_bytes(state: IndexState) -> dict:
+    """Device/host byte split under cold-tier residency: ``host`` is the
+    float bytes of spilled tiles (held by the driver's host pool; the
+    device copies are zeroed), ``device`` everything else, so ``device +
+    host == state_memory_bytes``, the untiered total, by construction.
+    The zeroed device tiles keep their allocation, as in the JAX
+    package: the split is what a paging allocator would hold per tier."""
+    host = int(state.tier_spilled.sum()) * tile_bytes(state)
+    return {"device": state_memory_bytes(state) - host, "host": host}

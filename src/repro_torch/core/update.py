@@ -28,7 +28,7 @@ from ..quant import pq
 from . import version_manager as vm
 from .types import (NO_ID, NO_SUCC, STATUS_DELETED, STATUS_MERGING,
                     STATUS_NORMAL, STATUS_SPLITTING, IndexState, RoundResult,
-                    UBISConfig, require_untiered)
+                    UBISConfig)
 from .version_manager import masked_add_, masked_set_
 
 _EMPTY_SUCC = (NO_SUCC << 16) | NO_SUCC
@@ -144,7 +144,6 @@ def batched_append(state: IndexState, cfg: UBISConfig, vecs, ids, pids,
     """Append jobs to their target postings; winners are decided by
     group rank against the remaining tile capacity.  Returns
     (state, ok, flat) with ``flat = pid*C + slot`` (``M*C`` for losers)."""
-    require_untiered(cfg)
     C = cfg.capacity
     M = cfg.max_postings
     pids = pids.to(torch.int64)
@@ -222,7 +221,6 @@ def insert_round(state: IndexState, cfg: UBISConfig, vecs, ids, valid,
     used by cache drains (the path that exercises the paper's
     DELETED-branch pointer chasing).  Returns (state, RoundResult,
     touched (M,) bool)."""
-    require_untiered(cfg)
     M = cfg.max_postings
     status = vm.unpack_status(state.rec_meta)
     insertable = (state.allocated & (status != STATUS_DELETED)

@@ -73,6 +73,21 @@ def posting_scan(q: torch.Tensor, tiles: torch.Tensor,
     return ref.posting_scan(q, tiles, valid)
 
 
+def posting_scan_gather(q: torch.Tensor, vectors: torch.Tensor,
+                        slot_valid: torch.Tensor, vis: torch.Tensor,
+                        probe: torch.Tensor) -> torch.Tensor:
+    """Unfused phase 2: q (Q, d); vectors (M, C, d); slot_valid (M, C)
+    bool; vis (M,) bool; probe (Q, P) with entries in [0, M).  Returns
+    (Q, P, C) scores of every slot of each probed tile; invalid slots and
+    invisible postings -> BIG."""
+    valid = slot_valid & vis[:, None]
+    if _on_card(q):
+        return _ps.posting_scan_gather(_f32(q), _f32(vectors),
+                                       valid.contiguous(),
+                                       probe.to(torch.int32).contiguous())
+    return ref.posting_scan_gather(q, vectors, valid, probe)
+
+
 def posting_scan_topk(q: torch.Tensor, vectors: torch.Tensor,
                       slot_valid: torch.Tensor, vis: torch.Tensor,
                       probe: torch.Tensor, *, k: int,
@@ -115,6 +130,24 @@ def kmeans_assign(points: torch.Tensor, centroids: torch.Tensor,
     else:
         a, b = ref.kmeans_assign(points, centroids, mask)
     return (a[0], b[0]) if flat else (a, b)
+
+
+def pq_scan_gather(luts: torch.Tensor, codes: torch.Tensor,
+                   posting_slot: torch.Tensor, slot_valid: torch.Tensor,
+                   vis: torch.Tensor, probe: torch.Tensor) -> torch.Tensor:
+    """Unfused ADC scan (quant-plane phase 2): luts (Q, V, m, ksub); codes
+    (M, m, C) uint8; posting_slot (M,), clamped to [0, V); slot_valid
+    (M, C) bool; vis (M,) bool; probe (Q, P) with entries in [0, M).
+    Returns (Q, P, C) ADC scores; invalid slots and invisible postings
+    -> BIG."""
+    V = luts.shape[1]
+    slot = posting_slot.to(torch.int32).clamp(0, V - 1)
+    valid = slot_valid & vis[:, None]
+    if _on_card(luts):
+        return _pq.pq_scan_gather(_f32(luts), codes.contiguous(),
+                                  slot.contiguous(), valid.contiguous(),
+                                  probe.to(torch.int32).contiguous())
+    return ref.pq_scan_gather(luts, codes, slot, valid, probe)
 
 
 def pq_scan_topk(luts: torch.Tensor, codes: torch.Tensor,
@@ -192,8 +225,12 @@ KERNELS = {
     "centroid_score": (_cs, "launches", _cs.SOURCE, _cs.REPLACES),
     "centroid_topk": (_ct, "launches", _ct.SOURCE, _ct.REPLACES),
     "posting_scan": (_ps, "launches", _ps.SOURCE, _ps.REPLACES),
+    "posting_scan_gather": (_ps, "launches_gather", _ps.SOURCE_GATHER,
+                            _ps.REPLACES_GATHER),
     "posting_scan_topk": (_ps, "launches_topk", _ps.SOURCE_TOPK,
                           _ps.REPLACES_TOPK),
+    "pq_scan_gather": (_pq, "launches_gather", _pq.SOURCE_GATHER,
+                       _pq.REPLACES_GATHER),
     "pq_scan_topk": (_pq, "launches", _pq.SOURCE, _pq.REPLACES),
     "rerank_topk": (_rr, "launches", _rr.SOURCE, _rr.REPLACES),
     "kmeans_assign": (_ka, "launches", _ka.SOURCE, _ka.REPLACES),

@@ -1,18 +1,23 @@
-"""CUDA kernels over posting tiles: the full masked scan and the fused
-probe scan + top-k.
+"""CUDA kernels over posting tiles: the full masked scan, the probe scan
+and the fused probe scan + top-k.
 
 * ``posting_scan`` replaces the Pallas TPU kernel
   ``repro/kernels/posting_scan.py:posting_scan``: every slot of the pool
   scored against a query block, BIG at invalid slots — the exact
   (``brute_force``) oracle.  It runs ``csrc/masked_score.cu`` over the
   tiles viewed as (G*C, d), the same function as ``centroid_score``.
+* ``posting_scan_gather`` replaces ``repro/kernels/posting_scan.py:
+  posting_scan_gather``: every slot of each query's probed tiles, the
+  unfused (Q, P, C) scores that the fused search is held against, source
+  ``csrc/posting_scan_gather.cu``.
 * ``posting_scan_topk`` replaces ``repro/kernels/posting_scan.py:
   posting_scan_topk``: search phase 2, a running top-k over the probed
   tiles, source ``csrc/posting_scan_topk.cu``.
 
 Each source's header note says what bounds it on the H100 and how the
 design answers.  The plain versions are
-:func:`repro_torch.kernels.ref.posting_scan` and
+:func:`repro_torch.kernels.ref.posting_scan`,
+:func:`repro_torch.kernels.ref.posting_scan_gather` and
 :func:`repro_torch.kernels.ref.posting_scan_topk`.
 """
 from __future__ import annotations
@@ -24,15 +29,19 @@ import torch
 from . import _nvcc
 from .centroid_score import masked_score
 from .ref import posting_scan as plain  # noqa: F401  (the plain version)
+from .ref import posting_scan_gather as plain_gather  # noqa: F401
 from .ref import posting_scan_topk as plain_topk  # noqa: F401
 
 SOURCE = "src/repro_torch/csrc/masked_score.cu"
 REPLACES = "src/repro/kernels/posting_scan.py:57"
+SOURCE_GATHER = "src/repro_torch/csrc/posting_scan_gather.cu"
+REPLACES_GATHER = "src/repro/kernels/posting_scan.py:118"
 SOURCE_TOPK = "src/repro_torch/csrc/posting_scan_topk.cu"
 REPLACES_TOPK = "src/repro/kernels/posting_scan.py:208"
 WARP_K = 32           # warp path: one list entry per lane
 MAX_K = 1024          # block-wide path (csrc/topk_common.cuh)
 launches = 0
+launches_gather = 0
 launches_topk = 0
 
 
@@ -48,6 +57,38 @@ def posting_scan(q: torch.Tensor, tiles: torch.Tensor,
                        "posting_scan")
     if out.numel():
         launches += 1
+    return out
+
+
+def posting_scan_gather(q: torch.Tensor, vectors: torch.Tensor,
+                        valid: torch.Tensor, probe: torch.Tensor):
+    """Kernel wrapper: q (Q, d) fp32, vectors (M, C, d) fp32, valid (M, C)
+    bool, probe (Q, P) int32 with entries in [0, M) -> (Q, P, C) fp32
+    scores, BIG where ``valid`` is False."""
+    global launches_gather
+    Q, d = q.shape
+    M, C, _ = vectors.shape
+    P = probe.shape[1]
+    dev = q.device
+    _nvcc.require(q, "q", torch.float32, (Q, d))
+    _nvcc.require(vectors, "vectors", torch.float32, (M, C, d), dev)
+    _nvcc.require(valid, "valid", torch.bool, (M, C), dev)
+    _nvcc.require(probe, "probe", torch.int32, (Q, P), dev)
+    if 4 * d > 48 * 1024:
+        raise ValueError(f"posting_scan_gather: d={d} exceeds the query "
+                         "row's 48 KB of shared memory")
+    out = torch.empty((Q, P, C), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    fn = _nvcc.load("posting_scan_gather").posting_scan_gather
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    err = fn(q.data_ptr(), vectors.data_ptr(), valid.data_ptr(),
+             probe.data_ptr(), Q, M, C, d, P, out.data_ptr(),
+             _nvcc.stream_ptr(dev))
+    _nvcc.check(err, "posting_scan_gather")
+    launches_gather += 1
     return out
 
 

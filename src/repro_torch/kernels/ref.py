@@ -57,6 +57,33 @@ def centroid_topk(q: torch.Tensor, c: torch.Tensor, vis: torch.Tensor,
     return s, i.to(torch.int32)
 
 
+def posting_scan_gather(q: torch.Tensor, vectors: torch.Tensor,
+                        valid: torch.Tensor, probe: torch.Tensor):
+    """Probe scan without selection: q (Q, d); vectors (M, C, d); valid
+    (M, C) bool (slot validity and posting visibility combined); probe
+    (Q, P).  Returns (Q, P, C) fp32 scores ``||v||^2 - 2 q.v`` of every
+    slot of each probed tile, BIG where ``valid`` is False."""
+    probe = probe.long()
+    tiles = vectors[probe].float()                        # (Q, P, C, d)
+    vn = torch.sum(tiles * tiles, dim=-1)
+    dots = torch.einsum("qd,qpcd->qpc", q.float(), tiles)
+    return torch.where(valid[probe], vn - 2.0 * dots, BIG)
+
+
+def _select(s: torch.Tensor, probe: torch.Tensor, qp_ok: torch.Tensor,
+            k: int):
+    """Top-k of (Q, P, C) scores with the (Q, P) mask ``qp_ok`` applied:
+    (scores (Q, k) ascending, cand (Q, k) int32 flat slot index
+    ``probe*C + c``), ties by position in the flattened (P, C) order."""
+    Q, P, C = s.shape
+    s = torch.where((qp_ok != 0)[:, :, None], s, BIG)
+    top, pos = stable_topk(s.reshape(Q, P * C), k)
+    cand_all = (probe.long()[:, :, None] * C
+                + torch.arange(C, device=s.device)[None, None, :])
+    cand = torch.gather(cand_all.reshape(Q, P * C), 1, pos)
+    return top, cand.to(torch.int32)
+
+
 def posting_scan_topk(q: torch.Tensor, vectors: torch.Tensor,
                       valid: torch.Tensor, qp_ok: torch.Tensor,
                       probe: torch.Tensor, k: int):
@@ -67,19 +94,8 @@ def posting_scan_topk(q: torch.Tensor, vectors: torch.Tensor,
     (scores (Q, k) ascending, cand (Q, k) int32 flat slot index
     ``probe*C + c``); ties break by position in the flattened (P, C)
     order."""
-    q = q.float()
-    probe = probe.long()
-    tiles = vectors[probe].float()                        # (Q, P, C, d)
-    Q, P, C, _ = tiles.shape
-    vn = torch.sum(tiles * tiles, dim=-1)
-    dots = torch.einsum("qd,qpcd->qpc", q, tiles)
-    ok = valid[probe] & (qp_ok != 0)[:, :, None]
-    s = torch.where(ok, vn - 2.0 * dots, BIG)
-    top, pos = stable_topk(s.reshape(Q, P * C), k)
-    cand_all = (probe[:, :, None] * C
-                + torch.arange(C, device=q.device)[None, None, :])
-    cand = torch.gather(cand_all.reshape(Q, P * C), 1, pos)
-    return top, cand.to(torch.int32)
+    return _select(posting_scan_gather(q, vectors, valid, probe), probe,
+                   qp_ok, k)
 
 
 def kmeans_assign(points: torch.Tensor, centroids: torch.Tensor,
@@ -104,18 +120,15 @@ def kmeans_assign(points: torch.Tensor, centroids: torch.Tensor,
     return assign, best
 
 
-def pq_scan_topk(luts: torch.Tensor, codes: torch.Tensor,
-                 slot: torch.Tensor, valid: torch.Tensor,
-                 qp_ok: torch.Tensor, probe: torch.Tensor, k: int):
-    """Masked ADC probe scan + top-k (quant-plane phase 2).
-
-    luts (Q, V, m, ksub); codes (M, m, C) uint8; slot (M,) codebook slot
-    of each posting, in [0, V); valid (M, C) bool (slot validity and
-    posting visibility combined); qp_ok (Q, P); probe (Q, P).  Returns
-    (scores (Q, k) ascending, cand (Q, k) int32 flat slot index
-    ``probe*C + c``); masked candidates carry BIG, ties break by position
-    in the flattened (P, C) order.  The m lookups are summed in order
-    j = 0..m-1, as the CUDA kernel sums them."""
+def pq_scan_gather(luts: torch.Tensor, codes: torch.Tensor,
+                   slot: torch.Tensor, valid: torch.Tensor,
+                   probe: torch.Tensor):
+    """ADC probe scan without selection: luts (Q, V, m, ksub); codes (M,
+    m, C) uint8; slot (M,) codebook slot of each posting, in [0, V);
+    valid (M, C) bool (slot validity and posting visibility combined);
+    probe (Q, P).  Returns (Q, P, C) fp32 ``sum_j lut[slot, j, code_j]``,
+    BIG where ``valid`` is False.  The m lookups are summed in order
+    j = 0..m-1, as the CUDA kernels sum them."""
     Q, V, m, ksub = luts.shape
     probe = probe.long()
     C = codes.shape[2]
@@ -128,13 +141,20 @@ def pq_scan_topk(luts: torch.Tensor, codes: torch.Tensor,
         idx = (base[:, :, None] + j * ksub + codes_g[:, :, j, :])
         picked = torch.gather(flat, 1, idx.reshape(Q, P * C))
         raw = picked if raw is None else raw + picked
-    ok = valid[probe] & (qp_ok != 0)[:, :, None]
-    s = torch.where(ok.reshape(Q, P * C), raw, BIG)
-    top, pos = stable_topk(s, k)
-    cand_all = (probe[:, :, None] * C
-                + torch.arange(C, device=luts.device)[None, None, :])
-    cand = torch.gather(cand_all.reshape(Q, P * C), 1, pos)
-    return top, cand.to(torch.int32)
+    return torch.where(valid[probe], raw.reshape(Q, P, C), BIG)
+
+
+def pq_scan_topk(luts: torch.Tensor, codes: torch.Tensor,
+                 slot: torch.Tensor, valid: torch.Tensor,
+                 qp_ok: torch.Tensor, probe: torch.Tensor, k: int):
+    """Masked ADC probe scan + top-k (quant-plane phase 2).
+
+    The inputs of :func:`pq_scan_gather` plus the (Q, P) mask ``qp_ok``.
+    Returns (scores (Q, k) ascending, cand (Q, k) int32 flat slot index
+    ``probe*C + c``); masked candidates carry BIG, ties break by position
+    in the flattened (P, C) order."""
+    return _select(pq_scan_gather(luts, codes, slot, valid, probe), probe,
+                   qp_ok, k)
 
 
 def rerank_topk(q: torch.Tensor, vectors: torch.Tensor,

@@ -7,9 +7,11 @@
 * The entry points (the drivers, ``make_index``, ``get_model``,
   ``EmbeddingServer``, ``RetrievalServer``) run on the card by default
   and raise without one unless the caller asks for the CPU; the planes
-  of later slices (the cold tier, the fused tick, the decode path)
-  raise ``NotImplementedError`` instead of being ignored, and the quant
-  plane (``use_pq``) runs.
+  of later slices (the fused tick, the decode path) raise
+  ``NotImplementedError`` instead of being ignored, and the quant plane
+  (``use_pq``) and the cold tier (``use_tier``) run.
+* Every kernel of ``ops.KERNELS`` names a CUDA source that ``_nvcc``
+  builds, and every source is built for some kernel.
 """
 import os
 import subprocess
@@ -53,7 +55,9 @@ bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "repro"))
 assert not bad, bad
 for m in ("repro_torch.quant.pq", "repro_torch.models.transformer",
           "repro_torch.serving.engine", "repro_torch.launch.serve",
-          "repro_torch.obs.probe", "repro_torch.kernels.flash_attention"):
+          "repro_torch.obs.probe", "repro_torch.kernels.flash_attention",
+          "repro_torch.core.tier", "repro_torch.kernels.posting_scan",
+          "repro_torch.kernels.pq_scan"):
     assert m in mods, (m, mods)
 print(len(mods))
 """
@@ -97,11 +101,11 @@ def test_entry_points_raise_without_cuda():
     assert SPFreshDriver(cfg, seeds, device="cpu").cfg.mode == "spfresh"
 
 
-# The case ids are the ones these cases had when the quant plane still
-# raised; the first case now checks that it runs instead.
+# The case ids are the ones these cases had when the quant plane and the
+# cold tier still raised; the first two cases now check that they run.
 @pytest.mark.parametrize("kw,what", [
     pytest.param(dict(use_pq=True, pq_m=4), None, id="kw0-quant plane"),
-    pytest.param(dict(use_pq=True, pq_m=4, use_tier=True), "cold tier",
+    pytest.param(dict(use_pq=True, pq_m=4, use_tier=True), None,
                  id="kw1-quant plane"),
     pytest.param(dict(fused_tick=True), "fused_tick", id="kw2-fused_tick"),
     pytest.param(dict(lm="prefill"), "decode slice", id="lm-prefill"),
@@ -129,9 +133,26 @@ def test_later_slices_raise_not_implemented(kw, what):
     if what is None:
         drv = UBISDriver(cfg, seeds, device="cpu", fused_tick=fused)
         assert drv.cfg.use_pq and drv.state.codes.shape == (64, 4, 32)
+        assert (drv.tier is not None) == cfg.use_tier
         return
     with pytest.raises(NotImplementedError, match=what):
         UBISDriver(cfg, seeds, device="cpu", fused_tick=fused)
+
+
+def test_every_kernel_source_is_built():
+    from repro_torch.kernels import _nvcc, ops
+    names = set(_nvcc.kernel_names())
+    sources = {src for _, _, src, _ in ops.KERNELS.values()}
+    assert {Path(s).stem for s in sources} == names
+    for name in ("posting_scan_gather", "pq_scan_gather"):
+        assert name in names
+        assert ops.KERNELS[name][2] == f"src/repro_torch/csrc/{name}.cu"
+    for src in sources:
+        assert (ROOT / src).is_file(), src
+    assert ops.KERNELS["posting_scan_gather"][3] == \
+        "src/repro/kernels/posting_scan.py:118"
+    assert ops.KERNELS["pq_scan_gather"][3] == \
+        "src/repro/kernels/pq_scan.py:78"
 
 
 def test_unknown_engine_raises():

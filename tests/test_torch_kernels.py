@@ -150,10 +150,12 @@ def test_cpu_tensors_take_the_plain_version():
     probe = torch.zeros(3, 2, dtype=torch.int32)
     adc, cand = ops.pq_scan_topk(luts, codes, torch.zeros(2), ones,
                                  ones[:, 0], probe, k=6)
+    ops.pq_scan_gather(luts, codes, torch.zeros(2), ones, ones[:, 0], probe)
+    ops.posting_scan_gather(q, c.reshape(2, 5, 8), ones, ones[:, 0], probe)
     ops.rerank_topk(q, c.reshape(2, 5, 8), ~ones[:, 0], cand, adc, k=3)
     ops.flash_attention(torch.randn(1, 2, 3, 8), torch.randn(1, 1, 5, 8),
                         torch.randn(1, 1, 5, 8), window=2)
-    assert len(ops.launch_counts()) == 8
+    assert len(ops.launch_counts()) == 10
     assert set(ops.launch_counts().values()) == {0}
 
 
