@@ -15,7 +15,11 @@ Phases, in order (any failure exits non-zero before the last line):
    all masked, integer ties, spilled postings and empty ADC slots);
    ``flash_attention`` at tests/test_kernels.py's 12 shapes and at the
    serving path's (B=64, Hq=32, Hkv=4, L=512, D=64, causal), within 2e-4
-   abs and rel (softmax is not exact on real data).
+   abs and rel (softmax is not exact on real data).  ``masked_score``
+   (``centroid_score``, ``posting_scan``; 3xTF32 on the tensor cores) at
+   Q = 1, 31, 32, 33, 2048 (both query tiles), x rows not a multiple of
+   its 128-row tile, d = 96, 100, 128, 300, aligned and one float off: exact on
+   integer inputs, within the tolerance on normal ones.
 3. Two main paths at SIFT1M's shape through ``make_index``, each with
    the launch counts reset just before it and read just after it.
    (a) the float plane; (b) the quant plane (``use_pq=True``, PQ16:
@@ -65,7 +69,11 @@ Phases, in order (any failure exits non-zero before the last line):
    ``scaled_dot_product_attention`` calls, one with ``enable_gqa`` and
    one on expanded k and v, each with the backend it ran) as a library
    yardstick; the kernel is also held against its plain version there.
-   The block-wide top-k is timed at k = 64 and 192 too.  Then a load
+   The block-wide top-k is timed at k = 64 and 192 too.
+   ``centroid_score`` and ``posting_scan`` also report the 3xTF32 route's
+   bound (bytes, or three TF32 products at 495 TFLOP/s), and the insert
+   locate's argmin is held against the plain version's (a differing pick
+   must be a near-tie within the tolerance).  Then a load
    chunk and a streaming step of the float path, a streaming step of the
    quant and of the tiered path and one embedded batch of the serving
    path run under ``torch.profiler``: their wall time, device time by
@@ -93,6 +101,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, HBM3 rate
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# TF32 on the tensor cores, dense; 3xTF32 issues three products per fp32 one
+PEAK_TF32 = 495e12
 TOL = 1e-4           # relative to the score scale: fp32 summation order
 ATTN_TOL = 2e-4      # abs and rel: tests/test_kernels.py:127
 #: the kernels each main path must launch
@@ -308,6 +318,60 @@ def kernel_checks(ops, ref, dev, seed: int) -> None:
     run("float Q=1 k=32/192",
         case(1, 1000, 128, 50, 96, 32, (32, 192), (32, 192), normal, m=16,
              ksub=256, R=192, k_r=10, N=2048))
+
+
+#: phase 2's shapes for ``masked_score`` (``centroid_score`` and
+#: ``posting_scan``): both query tiles (Q <= 32 and above), x rows not a
+#: multiple of the 128-row tile, d not a multiple of the 32-deep slice
+#: (100 not even of 8; 300 spans ten slices), and q and x at one float past
+#: an aligned start
+MASKED_Q = (1, 31, 32, 33, 2048)
+MASKED_D = (96, 100, 128, 300)
+
+
+def masked_score_checks(ops, ref, dev, seed: int) -> None:
+    """``centroid_score`` (1,000 centroids) and ``posting_scan`` (9 x 37
+    tiles) against their plain versions at every shape of ``MASKED_Q`` x
+    ``MASKED_D``, aligned and not: exact on integer-valued inputs (3xTF32
+    splits an integer below 2^11 into hi = itself and lo = 0), within
+    ``TOL * scale`` on normal ones."""
+    g = np.random.default_rng(seed + 2)
+
+    def at(kind, shape, off):
+        arr = (g.integers(-3, 4, shape).astype(np.float32) if kind == "int"
+               else g.standard_normal(shape, np.float32))
+        flat = torch.zeros(arr.size + off, device=dev)
+        flat[off:] = torch.as_tensor(arr.ravel(), device=dev)
+        return flat[off:].view(shape)
+
+    n, worst = 0, 0.0
+    for kind in ("int", "float"):
+        for d in MASKED_D:
+            for Q in MASKED_Q:
+                for off in (0, 1):
+                    q, c, tiles = (at(kind, (Q, d), off),
+                                   at(kind, (1000, d), off),
+                                   at(kind, (9, 37, d), off))
+                    vis = torch.as_tensor(g.random(1000) < 0.7, device=dev)
+                    valid = torch.as_tensor(g.random((9, 37)) < 0.7,
+                                            device=dev)
+                    for name, got, want in (
+                            ("centroid_score", ops.centroid_score(q, c, vis),
+                             ref.centroid_score(q, c, vis)),
+                            ("posting_scan",
+                             ops.posting_scan(q, tiles, valid),
+                             ref.posting_scan(q, tiles, valid))):
+                        label = f"{name}[{kind} Q={Q} d={d} offset={off}]"
+                        if kind == "int":
+                            require_exact(label, (got,), (want,))
+                        else:
+                            worst = max(worst, require_close(label, got,
+                                                             want))
+                        n += 1
+    torch.cuda.synchronize()
+    say(f"  masked_score vs plain at {n} shapes (Q {MASKED_Q}, d "
+        f"{MASKED_D}, aligned and one float off): integer exact, normal "
+        f"max abs err {worst:.3g}")
 
 
 def require_attn_close(name, got, want) -> float:
@@ -911,6 +975,13 @@ def bound(ops: float, nbytes: float) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def bound_3xtf32(ops: float, nbytes: float) -> float:
+    """The least time of the 3xTF32 route (``masked_score``): bytes at the
+    HBM rate or three TF32 products per fp32 one at the tensor cores'
+    rate, whichever is longer."""
+    return max(nbytes / PEAK_BYTES, 3.0 * ops / PEAK_TF32) * 1e3
+
+
 def timed_row(ops, counts, name, fn, plain, library, compare, ops_n,
               bytes_n) -> dict:
     """One entry of the kernel line: the kernel held against its plain
@@ -967,11 +1038,26 @@ def time_kernels(ops, ref, drv, q_np, counts) -> list:
         return cmp
 
     J = locate.shape[0]
+    # the insert locate's pick (update.py: argmin over the scores): where
+    # the kernel's pick differs, its plain score is within the tolerance
+    # of the plain best (a near-tie the two roundings order apart)
+    got = ops.centroid_score(locate, cen, insertable)
+    want = ref.centroid_score(locate, cen, insertable)
+    gi, wi = got.argmin(-1), want.argmin(-1)
+    check_assign("insert locate argmin",
+                 (gi, got.gather(1, gi[:, None])[:, 0]),
+                 (wi, want.gather(1, wi[:, None])[:, 0]), want)
+    say(f"  insert locate argmin ({J} x {M}): {int((gi != wi).sum())} of "
+        f"{J} picks differ from the plain version's, each within the "
+        "tolerance of its best")
+    del got, want
+    work = {"centroid_score": (2.0 * J * M * d + 2.0 * M * d,
+                               4.0 * (J * d + M * d + J * M) + M)}
     row("centroid_score",
         lambda: ops.centroid_score(locate, cen, insertable),
         lambda: ref.centroid_score(locate, cen, insertable),
         lambda: torch.addmm(cn[None], locate, cen.T, alpha=-2), close,
-        2.0 * J * M * d + 2.0 * M * d, 4.0 * (J * d + M * d + J * M) + M)
+        *work["centroid_score"])
     k_c = drv.cfg.nprobe
     full_c = ref.centroid_score(q, cen, vis)
     row("centroid_topk",
@@ -982,12 +1068,19 @@ def time_kernels(ops, ref, drv, q_np, counts) -> list:
         4.0 * (len(q) * d + M * d) + M + 8.0 * len(q) * k_c)
     del full_c
     N = M * C
+    work["posting_scan"] = (2.0 * len(qx) * N * d + 2.0 * N * d,
+                            4.0 * (len(qx) * d + N * d + len(qx) * N) + N)
     row("posting_scan",
         lambda: ops.posting_scan(qx, st.vectors, valid),
         lambda: ref.posting_scan(qx, st.vectors, valid),
         lambda: torch.addmm(vn[None], qx, flat.T, alpha=-2), close,
-        2.0 * len(qx) * N * d + 2.0 * N * d,
-        4.0 * (len(qx) * d + N * d + len(qx) * N) + N)
+        *work["posting_scan"])
+    for r in rows:
+        if r["name"] in work:
+            say(f"  {r['name']}: {r['ms']:.4f} ms, fp32 bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), 3xTF32 bound "
+                f"{bound_3xtf32(*work[r['name']]):.4f} ms, addmm "
+                f"{r['library_ms']:.4f} ms")
 
     def rescore(cand):
         v = flat[cand.long()]
@@ -1357,6 +1450,7 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a GPU")
     src = os.path.join(ROOT, "src")
@@ -1382,6 +1476,7 @@ def main() -> None:
     say("phase 2: kernels against their plain versions")
     t = time.perf_counter()
     kernel_checks(ops, ref, dev, args.seed)
+    masked_score_checks(ops, ref, dev, args.seed)
     attention_checks(ops, ref, dev, args.seed)
     torch.cuda.empty_cache()
     say(f"  {time.perf_counter() - t:.1f} s")
@@ -1476,6 +1571,7 @@ def main() -> None:
     profile_windows(fdrv, fstream, qdrv, qstream, tdrv, tstream,
                     lambda: server.embedder.embed(toks))
     tdrv.close()
+    say(f"  chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     say(smi)
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {

@@ -305,16 +305,18 @@ def _reassign(state, cfg, r_pid):
     return state, moved.sum()
 
 
-def background_round(state: IndexState, cfg: UBISConfig, kinds, pids):
+def background_round(state: IndexState, cfg: UBISConfig, kinds, pids,
+                     reassign: bool = True):
     """Execute a padded batch of marked background ops.
 
     kinds: (B,) int in {KIND_NONE, KIND_SPLIT, KIND_MERGE, KIND_COMPACT}
     pids:  (B,) int posting ids (-1 = padding)
 
     Ops must have been marked (SPLITTING for split/compact, MERGING for
-    merge) in an earlier round.  Updates ``state`` in place; returns
-    (state, BackgroundRound).  The JAX package's ``use_cache=False`` (the
-    sharded plane) is not ported yet."""
+    merge) in an earlier round.  ``reassign=False`` skips the fused
+    reassign over the postings born this round.  Updates ``state`` in
+    place; returns (state, BackgroundRound).  The JAX package's
+    ``use_cache=False`` (the sharded plane) is not ported yet."""
     dev = state.device
     B = kinds.shape[0]
     C, d = cfg.capacity, cfg.dim
@@ -533,7 +535,7 @@ def background_round(state: IndexState, cfg: UBISConfig, kinds, pids):
     r_pid = torch.cat([torch.where(split_exec, pa, -1),
                        torch.where(split_exec & ~b_empty, pb, -1),
                        torch.where(merge_exec, pa, -1)])
-    if bool((r_pid >= 0).any()):
+    if reassign and bool((r_pid >= 0).any()):
         state, n_re = _reassign(state, cfg, r_pid)
 
     rr = BackgroundRound(

@@ -38,8 +38,8 @@ from .types import (KIND_COMPACT, KIND_MERGE, KIND_SPLIT, STATUS_MERGING,
 KIND_CODES = {"split": KIND_SPLIT, "merge": KIND_MERGE,
               "compact": KIND_COMPACT}
 EXACT_CHUNK_FLOATS = 1 << 28  # exact(): score block per query chunk (1 GiB)
-INSERT_RETRIES = 2            # re-rounds for rejected jobs, a tick between
-GC_LAG = 16                   # versions a retired posting outlives for readers
+INSERT_RETRIES = 2            # default re-rounds for rejected jobs
+GC_LAG = 16                   # default versions a retired posting outlives
 PQ_SEED_OFFSET = 0x517C0DE    # the quant plane's draws: seed + this
 
 
@@ -107,25 +107,39 @@ class UBISDriver:
     in [0, 1), one per re-train, that pick its sample (default: drawn
     from a ``torch.Generator`` seeded from ``seed``).  ``obs``: the
     observability plane to report into (default: a new ``Obs()``).
+    ``insert_retries``: re-rounds for rejected insert jobs, a background
+    tick between; ``gc_lag``: the versions a retired posting outlives
+    for readers; ``reassign_after_split``: run the fused post-split/merge
+    reassign (the JAX driver's meaning for all three).
     With ``cfg.use_tier``: ``tier_moves_per_tick``, the planner's batch
     width; ``tier_async``, dispatch the tick's spill/promote copies at
     tick start (overlapping the background round) and commit them at
-    tick end.  The host exact rerank of spilled candidates is always on.
-    ``fused_tick=True`` (device-side candidate selection) belongs to a
-    later slice and raises.
+    tick end.  The host exact rerank of spilled candidates is always on:
+    ``tier_rerank_host=False`` raises, as does an ``obs_profile_dir``
+    (the JAX driver's profiled first tick), and ``fused_tick=True``
+    (device-side candidate selection); each belongs to a later slice.
     """
 
     def __init__(self, cfg: UBISConfig, seed_vectors=None, *,
                  seed: int = 0, round_size: int = 1024,
                  bg_ops_per_round: int = 4, drain_per_tick: int = 256,
+                 insert_retries: int = INSERT_RETRIES,
+                 gc_lag: int = GC_LAG, reassign_after_split: bool = True,
                  fused_tick: bool = False, pq_retrain_every: int = 32,
                  device=None, kmeans_init=None, pq_init=None,
                  pq_keys=None, tier_moves_per_tick: int = 32,
-                 tier_async: bool = False, obs: Optional[Obs] = None):
-        if fused_tick:
-            raise NotImplementedError(
-                "fused_tick=True (balance.mark_round) belongs to a later "
-                "slice of the port")
+                 tier_rerank_host: bool = True, tier_async: bool = False,
+                 obs: Optional[Obs] = None,
+                 obs_profile_dir: Optional[str] = None):
+        for flag, what in ((fused_tick, "fused_tick=True (balance."
+                            "mark_round)"),
+                           (not tier_rerank_host, "tier_rerank_host=False "
+                            "(the ADC-only cold read)"),
+                           (obs_profile_dir is not None, "obs_profile_dir "
+                            "(the profiled first tick)")):
+            if flag:
+                raise NotImplementedError(
+                    f"{what} belongs to a later slice of the port")
         if seed_vectors is None:
             raise ValueError("seed_vectors required (used for k-means seeds)")
         self.cfg = cfg
@@ -133,6 +147,9 @@ class UBISDriver:
         self.round_size = int(round_size)
         self.bg_ops = int(bg_ops_per_round)
         self.drain_n = int(drain_per_tick)
+        self.retries = int(insert_retries)
+        self.gc_lag = int(gc_lag)
+        self.reassign_after_split = bool(reassign_after_split)
         self.pq_retrain_every = int(pq_retrain_every)
         self.obs = obs if obs is not None else Obs()
 
@@ -181,7 +198,7 @@ class UBISDriver:
     def insert(self, vecs, ids, *, tick_between: bool = True) -> UpdateResult:
         """Stream (vecs, ids) through padded insert rounds.  Rejected jobs
         (SPFresh lock model / full cache) are retried up to
-        ``INSERT_RETRIES`` times with a background tick in between."""
+        ``insert_retries`` times with a background tick in between."""
         vecs = np.asarray(vecs, np.float32)
         ids = np.asarray(ids, np.int64).astype(np.int32)
         if len(vecs) != len(ids):
@@ -193,7 +210,7 @@ class UBISDriver:
         n_acc = n_cache = n_rej = 0
         J = self.round_size
         pending = (vecs, ids, np.full(ids.shape, -1, np.int32))
-        for _ in range(INSERT_RETRIES + 1):
+        for _ in range(self.retries + 1):
             pv, pi, ph = pending
             rej_v, rej_i, rej_h = [], [], []
             for off in range(0, len(pi), J):
@@ -390,7 +407,8 @@ class UBISDriver:
             kinds_np[i] = KIND_CODES[kind]
             pids_np[i] = pid
         self.state, rr = balance.background_round(
-            self.state, self.cfg, self._dev(kinds_np), self._dev(pids_np))
+            self.state, self.cfg, self._dev(kinds_np), self._dev(pids_np),
+            reassign=self.reassign_after_split)
         self._bg_ran = True        # the round carried the heat decay
         rr = rr.to_host()
         self.stats["bg_split"] += rr["n_split"]
@@ -482,10 +500,10 @@ class UBISDriver:
 
     def _gc(self) -> int:
         ver = int(self.state.global_version)
-        if ver <= GC_LAG:
+        if ver <= self.gc_lag:
             return 0
         self.state, n = balance.gc_round(self.state, self.cfg,
-                                         ver - GC_LAG, 64)
+                                         ver - self.gc_lag, 64)
         return int(n)
 
     def _pq_retrain(self) -> int:

@@ -20,7 +20,13 @@ from .ref import centroid_score as plain  # noqa: F401  (the plain version)
 
 SOURCE = "src/repro_torch/csrc/masked_score.cu"
 REPLACES = "src/repro/kernels/centroid_score.py:43"
+TILE_N = 128          # x rows per block (csrc/masked_score.cu)
 launches = 0
+
+
+def tile_q(Q: int) -> int:
+    """The kernel's query tile: 32 rows up to Q = 32, else 128."""
+    return 32 if Q <= 32 else 128
 
 
 def _lib():
@@ -41,7 +47,8 @@ def masked_score(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
     _nvcc.require(q, "q", torch.float32, (Q, d))
     _nvcc.require(x, "x", torch.float32, (N, d), q.device)
     _nvcc.require(mask, "mask", torch.bool, (N,), q.device)
-    if N >= 2 ** 31 or (Q + 63) // 64 > 65535:
+    blocks = -(-Q // tile_q(Q)) * -(-N // TILE_N)
+    if N >= 2 ** 31 or blocks >= 2 ** 31:
         raise ValueError(f"{what}: shape ({Q}, {N}) exceeds the launch grid")
     out = torch.empty((Q, N), dtype=torch.float32, device=q.device)
     if Q == 0 or N == 0:

@@ -14,10 +14,12 @@ Counterpart of ``repro/obs/``:
 A driver builds its own ``Obs()`` unless one is injected; the serving
 engine reuses its index's, so one exposition covers driver internals and
 request spans.  The plane is always on (the JAX package's
-``enabled=False`` switch has no counterpart).  The ``kernel_fallback``
-and ``kernel_fallback_traces`` counters exist and read 0: on the card
-every kernel launches or raises, and nothing falls back.  The JSONL trace
-sink of the JAX package's tracer is not ported.
+``enabled=False`` switch has no counterpart): ``Obs.enabled`` is a class
+attribute that reads ``True``, so code that asks the JAX package's
+question (the contract harness's trace audit) gets its answer.  The
+``kernel_fallback`` and ``kernel_fallback_traces`` counters exist and
+read 0: on the card every kernel launches or raises, and nothing falls
+back.  The JSONL trace sink of the JAX package's tracer is not ported.
 """
 from __future__ import annotations
 
@@ -44,6 +46,8 @@ TRACE_CAPACITY = 4096
 
 class Obs:
     """Metrics registry + bounded event trace (+ profiler hook)."""
+
+    enabled = True
 
     def __init__(self):
         self.registry = MetricsRegistry()

@@ -190,12 +190,30 @@ def _counted(name, fn):
     return out
 
 
+def _offset(t, off):
+    """``t`` as a contiguous view ``off`` floats past an aligned start
+    (one float breaks the 16-byte alignment of the kernel's wide copies)."""
+    flat = torch.zeros(t.numel() + off, device=t.device)
+    flat[off:] = t.flatten()
+    return flat[off:].view(t.shape)
+
+
+# masked_score's shapes: both query tiles (Q <= 32 and above), x rows not
+# a multiple of the 128-row tile (M = 300, G * C = 660), d not a multiple
+# of the 32-deep slice (100 not even of 8; 300 spans ten slices), aligned
+# and one float off
+MASKED_CASES = [(Q, d, off) for Q in (1, 31, 32, 33, 2048)
+                for d in (96, 100, 128, 300) for off in (0, 1)]
+
+
 @pytest.mark.cuda
-def test_card_centroid_score_kernel(cuda_dev):
-    x = _card_inputs(cuda_dev)
+@pytest.mark.parametrize("Q,d,off", MASKED_CASES)
+def test_card_centroid_score_kernel(cuda_dev, Q, d, off):
+    x = _card_inputs(cuda_dev, Q=Q, d=d)
+    q, c = _offset(x["q"], off), _offset(x["c"], off)
     got = _counted("centroid_score",
-                   lambda: ops.centroid_score(x["q"], x["c"], x["vis"]))
-    assert torch.equal(got, ref.centroid_score(x["q"], x["c"], x["vis"]))
+                   lambda: ops.centroid_score(q, c, x["vis"]))
+    assert torch.equal(got, ref.centroid_score(q, c, x["vis"]))
 
 
 @pytest.mark.cuda
@@ -208,11 +226,13 @@ def test_card_centroid_topk_kernel(cuda_dev):
 
 
 @pytest.mark.cuda
-def test_card_posting_scan_kernel(cuda_dev):
-    x = _card_inputs(cuda_dev)
+@pytest.mark.parametrize("Q,d,off", MASKED_CASES)
+def test_card_posting_scan_kernel(cuda_dev, Q, d, off):
+    x = _card_inputs(cuda_dev, Q=Q, d=d)
+    q, tiles = _offset(x["q"], off), _offset(x["tiles"], off)
     got = _counted("posting_scan",
-                   lambda: ops.posting_scan(x["q"], x["tiles"], x["valid"]))
-    assert torch.equal(got, ref.posting_scan(x["q"], x["tiles"], x["valid"]))
+                   lambda: ops.posting_scan(q, tiles, x["valid"]))
+    assert torch.equal(got, ref.posting_scan(q, tiles, x["valid"]))
 
 
 @pytest.mark.cuda
