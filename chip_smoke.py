@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py                      # the full run, one card
+    python3 chip_smoke.py --parent-log P.log   # beside another run's times
 
 Phases, in order (any failure exits non-zero before the last line):
 
@@ -13,9 +14,14 @@ Phases, in order (any failure exits non-zero before the last line):
    exactly), with the block-wide top-k past k = 32 (k = 64, 192), and at
    the edge shapes of the CPU tests (d=100 with odd C, m=10, ksub=100,
    all masked, integer ties, spilled postings and empty ADC slots);
-   ``flash_attention`` at tests/test_kernels.py's 12 shapes and at the
-   serving path's (B=64, Hq=32, Hkv=4, L=512, D=64, causal), within 2e-4
-   abs and rel (softmax is not exact on real data).  ``masked_score``
+   ``flash_attention`` (3xTF32 on the tensor cores) at 28 shapes
+   (``ATTN_SHAPES``: tests/test_kernels.py's three, D = 8, 72, 100 and
+   128, Lq != Lk under a window, GQA 8:1 at D = 128; causal or not, with
+   and without a window) and at the serving path's (B=64, Hq=32, Hkv=4,
+   L=512, D=64, causal), within 2e-4 abs and rel (softmax is not exact
+   on real data); ``kmeans_assign`` at ``KMEANS_SHAPES`` (N = 2,049, d =
+   1, 3, 16, 100, K*d past one shared-memory stage; 32 codebooks over
+   16), exact on integer inputs.  ``masked_score``
    (``centroid_score``, ``posting_scan``; 3xTF32 on the tensor cores) at
    Q = 1, 31, 32, 33, 2048 (both query tiles), x rows not a multiple of
    its 128-row tile, d = 96, 100, 128, 300, aligned and one float off: exact on
@@ -69,9 +75,13 @@ Phases, in order (any failure exits non-zero before the last line):
    ``scaled_dot_product_attention`` calls, one with ``enable_gqa`` and
    one on expanded k and v, each with the backend it ran) as a library
    yardstick; the kernel is also held against its plain version there.
-   The block-wide top-k is timed at k = 64 and 192 too.
-   ``centroid_score`` and ``posting_scan`` also report the 3xTF32 route's
-   bound (bytes, or three TF32 products at 495 TFLOP/s), and the insert
+   The block-wide top-k is timed at k = 64 and 192 too, and
+   ``kmeans_assign`` at the insert round's encode (2,048 rows under all
+   V*m codebooks) and the re-train's full re-encode (every pool slot).
+   ``centroid_score``, ``posting_scan`` and ``flash_attention`` also
+   report the 3xTF32 route's bound (bytes, or three TF32 products at 495
+   TFLOP/s).  With ``--parent-log`` (another tree's output, run first on
+   the same card) each kernel's line also shows that run's time.  The insert
    locate's argmin is held against the plain version's (a differing pick
    must be a near-tie within the tolerance).  Then a load
    chunk and a streaming step of the float path, a streaming step of the
@@ -89,6 +99,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -117,6 +128,10 @@ PATH_KERNELS = {
              "pq_scan_topk", "rerank_topk", "kmeans_assign"),
     "oracle": ("centroid_score", "posting_scan_gather", "pq_scan_gather"),
 }
+#: substrings of the port's own device kernels' names (csrc/*.cu): phase
+#: 4b lists each of them in a window, past the six that take the most time
+PORT_KERNELS = ("masked_score", "centroid_topk", "topk_merge", "posting_scan",
+                "pq_scan", "rerank_topk", "kmeans_assign", "flash_attention")
 #: the serving path's attention shape: (B, Hq, Hkv, L, D), causal
 SERVE_ATTN = (64, 32, 4, 512, 64)
 #: the tiered path's device high-watermark (float-resident postings), and
@@ -385,10 +400,20 @@ def require_attn_close(name, got, want) -> float:
     return float(err.max())
 
 
+#: phase 2's shapes for ``flash_attention`` (Lq, Lk, D, Hq, Hkv): the three
+#: of tests/test_kernels.py:114-117, then head dims at the kernel's edges
+#: (one MMA k-step; 72 and 100 not a multiple of 16 or of 4; 128, its
+#: widest), Lq != Lk under the window, GQA 8:1 at D = 128
+ATTN_SHAPES = ((37, 53, 16, 4, 2), (64, 64, 32, 2, 2), (16, 128, 64, 8, 1),
+               (70, 70, 8, 2, 1), (33, 77, 72, 4, 2), (40, 100, 100, 2, 1),
+               (65, 130, 128, 8, 1))
+
+
 def attention_checks(ops, ref, dev, seed: int) -> None:
-    """``flash_attention`` against its plain version at the 12 shapes of
-    tests/test_kernels.py:114-117 (ragged tiles, Lq != Lk end alignment,
-    GQA 2:1 and 8:1, D = 16/32/64) and at the serving path's shape."""
+    """``flash_attention`` against its plain version at every shape of
+    ``ATTN_SHAPES``, causal or not, with and without a window of 9 (ragged
+    tiles, Lq != Lk end alignment, GQA 2:1 and 8:1, D = 8 to 128), and at
+    the serving path's shape."""
     g = np.random.default_rng(seed + 1)
 
     def normal(shape):
@@ -396,8 +421,7 @@ def attention_checks(ops, ref, dev, seed: int) -> None:
                                device=dev)
 
     n = 0
-    for Lq, Lk, D, Hq, Hkv in ((37, 53, 16, 4, 2), (64, 64, 32, 2, 2),
-                               (16, 128, 64, 8, 1)):
+    for Lq, Lk, D, Hq, Hkv in ATTN_SHAPES:
         for causal in (True, False):
             for window in (None, 9):
                 q, k, v = (normal((2, Hq, Lq, D)), normal((2, Hkv, Lk, D)),
@@ -417,9 +441,36 @@ def attention_checks(ops, ref, dev, seed: int) -> None:
                              ops.flash_attention(q, k, v),
                              ref.flash_attention(q, k, v))
     torch.cuda.synchronize()
-    say(f"  flash_attention vs plain at {n} test shapes and the serving "
-        f"shape {SERVE_ATTN}: ok (max abs err there {err:.3g}, tolerance "
+    say(f"  flash_attention vs plain at {n} shapes (D "
+        f"{sorted({s[2] for s in ATTN_SHAPES})}) and the serving shape "
+        f"{SERVE_ATTN}: ok (max abs err there {err:.3g}, tolerance "
         f"{ATTN_TOL} abs + rel)")
+
+
+#: phase 2's edge shapes for ``kmeans_assign`` (N, K, d), 32 codebooks over
+#: 16 point batches (V*m over m, as the insert round encodes): N past a
+#: multiple of a block's points, d of 1 and 3 (padded in registers), 16,
+#: 100 (the path past 32 features), and K*d past one shared-memory stage
+KMEANS_SHAPES = ((2049, 256, 8), (300, 16, 1), (300, 16, 3), (600, 64, 16),
+                 (257, 100, 100), (100, 2100, 16))
+
+
+def kmeans_checks(ops, ref, dev, seed: int) -> None:
+    """``kmeans_assign`` against its plain version at ``KMEANS_SHAPES`` on
+    integer-valued inputs (every sum exact): ids and scores equal."""
+    g = np.random.default_rng(seed + 3)
+    for N, K, d in KMEANS_SHAPES:
+        pts = torch.as_tensor(g.integers(-3, 4, (N, 16 * d)).astype(
+            np.float32), device=dev).view(N, 16, d).transpose(0, 1)
+        cents = torch.as_tensor(g.integers(-3, 4, (32, K, d)).astype(
+            np.float32), device=dev)
+        mask = torch.as_tensor(g.random(N) < 0.8, device=dev)
+        require_exact(f"kmeans_assign[N={N} K={K} d={d}]",
+                      ops.kmeans_assign(pts, cents, mask),
+                      ref.kmeans_assign(pts, cents, mask))
+    torch.cuda.synchronize()
+    say(f"  kmeans_assign vs plain at {len(KMEANS_SHAPES)} edge shapes "
+        f"(N, K, d) {KMEANS_SHAPES}, 32 codebooks over 16: exact")
 
 
 # ---------------------------------------------------------------------------
@@ -970,6 +1021,24 @@ def median_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, kernel: str, reps: int = 20) -> float:
+    """Mean device time of the ``kernel`` launches that ``reps`` calls of
+    ``fn`` make, from ``torch.profiler``: the time on the card alone, where
+    ``median_ms`` also holds the host's launch of a short kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [getattr(ev, "self_device_time_total",
+                  getattr(ev, "self_cuda_time_total", 0.0))
+          for ev in prof.key_averages() if kernel in ev.key
+          and str(ev.device_type).endswith("CUDA")]
+    return sum(us) / reps / 1e3
+
+
 def bound(ops: float, nbytes: float) -> tuple:
     t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -1179,9 +1248,14 @@ def time_quant_kernels(ops, ref, qdrv, fdrv, q_np, counts) -> list:
         lambda: ops.kmeans_assign(pts, cents),
         lambda: ref.kmeans_assign(pts, cents),
         lambda: torch.baddbmm(cn, pts_c, cents.transpose(1, 2), alpha=-2),
-        assign_close, 2.0 * B * N * K * ds + 2.0 * B * K * ds,
-        4.0 * (B * N * ds + B * K * ds) + 8.0 * B * N))
+        assign_close, *assign_work(B, B, N, K, ds)))
     del full
+    on_card = device_ms(lambda: ops.kmeans_assign(pts, cents),
+                        "kmeans_assign")
+    say(f"  kmeans_assign at the fit shape ({B} x {N} x {K} x {ds}): "
+        f"{rows[-1]['ms']:.4f} ms a call, {on_card:.4f} ms of it on the "
+        "card (torch.profiler, mean of 20)")
+    time_assign_shapes(ops, ref, st, flat, live)
 
     # the block-wide top-k of the float kernels, past one warp
     fst = fdrv.state
@@ -1206,6 +1280,61 @@ def time_quant_kernels(ops, ref, qdrv, fdrv, q_np, counts) -> list:
         "plain): " + "; ".join(f"{n}: {a:.4f} / {b:.4f}"
                                for n, (a, b) in wide.items()))
     return rows
+
+
+def assign_work(B: int, Bp: int, N: int, K: int, ds: int) -> tuple:
+    """``kmeans_assign``'s operations and bytes: B codebooks of K x ds
+    over Bp point batches of N rows; (assign, best) written once."""
+    return (2.0 * B * N * K * ds + 2.0 * B * K * ds,
+            4.0 * (Bp * N * ds + B * K * ds) + 8.0 * B * N)
+
+
+def time_assign_shapes(ops, ref, st, flat, live) -> None:
+    """``kmeans_assign`` at its two other main-path shapes on the quant
+    state (printed): the insert round's ``encode_all_versions`` (2,048
+    rows under all V*m codebooks, over m point batches) beside its plain
+    version and ``baddbmm``, and the re-train's full re-encode (every
+    slot of the pool, ``encode_tiles``) with no plain run (its score
+    matrix would take 103 GB), held against the plain version on its
+    first 65,536 rows."""
+    M, C, d = st.vectors.shape
+    V, m, K, ds = st.pq_codebooks.shape
+    cb_all = st.pq_codebooks.reshape(V * m, K, ds).contiguous()
+    rows = flat[live[:2048]].contiguous()
+    J = rows.shape[0]
+    pts = rows.view(J, m, ds).transpose(0, 1)
+    rep = pts.repeat(V, 1, 1).contiguous()
+    cn = (cb_all * cb_all).sum(-1)[:, None, :]
+    full = cn - 2.0 * torch.bmm(rep, cb_all.transpose(1, 2))
+    check_assign("kmeans_assign, insert round's shape",
+                 ops.kmeans_assign(pts, cb_all),
+                 ref.kmeans_assign(pts, cb_all), full)
+    del full
+    ins = (median_ms(lambda: ops.kmeans_assign(pts, cb_all)),
+           median_ms(lambda: ref.kmeans_assign(pts, cb_all)),
+           median_ms(lambda: torch.baddbmm(cn, rep, cb_all.transpose(1, 2),
+                                           alpha=-2)),
+           bound(*assign_work(V * m, m, J, K, ds)))
+    cb = st.pq_codebooks[int(st.pq_active)].contiguous()
+    every = st.vectors.view(M * C, m, ds).transpose(0, 1)
+    got = ops.kmeans_assign(every, cb)
+    head = every[:, :65536]
+    cn1 = (cb * cb).sum(-1)[:, None, :]
+    check_assign("kmeans_assign, full re-encode's shape (first rows)",
+                 (got[0][:, :65536], got[1][:, :65536]),
+                 ref.kmeans_assign(head, cb),
+                 cn1 - 2.0 * torch.bmm(head.contiguous(),
+                                       cb.transpose(1, 2)))
+    del got
+    enc = (median_ms(lambda: ops.kmeans_assign(every, cb), reps=5, warm=1),
+           bound(*assign_work(m, m, M * C, K, ds)))
+    torch.cuda.synchronize()
+    say(f"  kmeans_assign at the insert round's encode ({J} rows x {V * m} "
+        f"codebooks over {m}, {K} x {ds}): {ins[0]:.4f} ms (plain "
+        f"{ins[1]:.4f}, baddbmm {ins[2]:.4f}, bound {ins[3][0]:.4f} by "
+        f"{ins[3][1]}); at the full re-encode ({M * C} rows x {m} "
+        f"codebooks, {K} x {ds}): {enc[0]:.4f} ms (bound {enc[1][0]:.4f} "
+        f"by {enc[1][1]})")
 
 
 def time_gathers(ops, ref, fdrv, qdrv, x, counts) -> list:
@@ -1298,13 +1427,13 @@ def time_attention(ops, ref, dev, counts, seed: int) -> dict:
     q, k, v = (torch.as_tensor(g.standard_normal(s, np.float32), device=dev)
                for s in ((B, Hq, L, D), (B, Hkv, L, D), (B, Hkv, L, D)))
     plain = lambda: ref.flash_attention(q, k, v, causal=True)  # noqa: E731
+    work = (4.0 * B * Hq * D * L * (L + 1) / 2,
+            4.0 * (2 * B * Hq * L * D + 2 * B * Hkv * L * D))
     row = timed_row(
         ops, counts, "flash_attention",
         lambda: ops.flash_attention(q, k, v, causal=True), plain, None,
         lambda a, b: require_attn_close("flash_attention, timed inputs", a,
-                                        b),
-        4.0 * B * Hq * D * L * (L + 1) / 2,
-        4.0 * (2 * B * Hq * L * D + 2 * B * Hkv * L * D))
+                                        b), *work)
     sdpa = {
         "enable_gqa": lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True),
@@ -1321,6 +1450,12 @@ def time_attention(ops, ref, dev, counts, seed: int) -> dict:
             f"(kernels: {'; '.join(n[:60] for n in names[:4])})")
     del want
     row["library_ms"] = min(times.values())
+    on_card = device_ms(lambda: ops.flash_attention(q, k, v, causal=True),
+                        "flash_attention")
+    say(f"  flash_attention: {row['ms']:.4f} ms a call ({on_card:.4f} ms "
+        f"on the card, torch.profiler), fp32 bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}), 3xTF32 bound {bound_3xtf32(*work):.4f} ms, "
+        f"faster SDPA {row['library_ms']:.4f} ms")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return row
@@ -1435,8 +1570,9 @@ def profile_windows(drv, stream, qdrv, qstream, tdrv, tstream,
                     for k, ms, c in rows[:10]]}
         say(f"  profile {name}: wall {wall:.4f} s, device busy {busy:.4f} s "
             f"({100 * busy / wall:.1f}%)")
-        for k, ms, c in rows[:6]:
-            say(f"    {ms:9.3f} ms  {c:6d} calls  {k[:70]}")
+        for i, (k, ms, c) in enumerate(rows):
+            if i < 6 or any(p in k for p in PORT_KERNELS):
+                say(f"    {ms:9.3f} ms  {c:6d} calls  {k[:70]}")
         if name == "tier_stream_step":
             windows[name]["copies"] = cp = copy_overlap(prof)
             say(f"    tier copies by stream (main {cp['main_stream']}): "
@@ -1445,9 +1581,24 @@ def profile_windows(drv, stream, qdrv, qstream, tdrv, tstream,
     return windows
 
 
+def parent_times(path: str) -> dict:
+    """Kernel name -> ms from the ``{"kernels": ...}`` line of another
+    run's standard output."""
+    with open(path) as f:
+        for line in f:
+            if line.startswith('{"kernels"'):
+                return {r["name"]: r["ms"] for r in json.loads(line)["kernels"]}
+    fail(f"no kernel line in {path}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parent-log", metavar="PATH",
+                    help="the standard output of another tree's "
+                         "chip_smoke.py run earlier on the same card (a "
+                         "parent commit): its kernel times are printed "
+                         "beside this run's in phase 4")
     args = ap.parse_args()
 
     t_start = time.perf_counter()
@@ -1468,16 +1619,19 @@ def main() -> None:
     built = _nvcc.build()
     say(f"  nvcc build (parallel, {len(built)} sources): "
         f"{time.perf_counter() - t:.1f} s  {json.dumps(built)}")
-    for name in _nvcc.kernel_names():
-        for line in _nvcc.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"  ptxas {name}: {line.strip()}")
+    for name in _nvcc.kernel_names():        # one entry per instance
+        log = _nvcc.build_log(name)
+        regs = re.findall(r"Used (\d+) registers", log)
+        spills = re.findall(r"(\d+) bytes spill stores", log)
+        say(f"  ptxas {name}: registers {'/'.join(regs)}; spill stores "
+            f"{'/'.join(spills)} bytes")
 
     say("phase 2: kernels against their plain versions")
     t = time.perf_counter()
     kernel_checks(ops, ref, dev, args.seed)
     masked_score_checks(ops, ref, dev, args.seed)
     attention_checks(ops, ref, dev, args.seed)
+    kmeans_checks(ops, ref, dev, args.seed)
     torch.cuda.empty_cache()
     say(f"  {time.perf_counter() - t:.1f} s")
 
@@ -1562,11 +1716,15 @@ def main() -> None:
     rows += time_quant_kernels(ops, ref, qdrv, fdrv, qq, counts)
     rows += time_gathers(ops, ref, fdrv, qdrv, oracle_in, counts)
     rows.append(time_attention(ops, ref, dev, counts, args.seed))
+    before = parent_times(args.parent_log) if args.parent_log else {}
     for r in rows:
+        was = (f", parent tree {before[r['name']]:.4f} ms"
+               if r["name"] in before else "")
         say(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
             f"bound {r['bound_ms']:.4f} by {r['bound_by']}, library "
-            f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}), "
-            f"launches {r['launches']}, max err {r['max_abs_err']:.3g}")
+            f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}"
+            f"{was}), launches {r['launches']}, max err "
+            f"{r['max_abs_err']:.3g}")
     say("phase 4b: device time by kernel (torch.profiler)")
     profile_windows(fdrv, fstream, qdrv, qstream, tdrv, tstream,
                     lambda: server.embedder.embed(toks))

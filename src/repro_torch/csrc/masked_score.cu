@@ -31,14 +31,15 @@
 // staged fp32 slices, so x is read once; the accumulators go through
 // shared memory and out in 16-byte streaming stores along N, with the norm
 // and the mask applied on the way.
-// Error: a = hi + lo + r with |r| <= 2^-22 |a|, and the dropped lo.lo is
-// below 2^-22 |a||b|, so each product carries a relative error of about
-// 3 * 2^-22 (fp32's own is 2^-24) before the fp32 accumulation; on
-// integer-valued inputs below 2^11, lo = 0 and every product is exact.
+// The split, the product and the copies are in tf32x3.cuh, with the error
+// bound (about 3 * 2^-22 relative a product; exact on integer-valued
+// inputs below 2^11).
 // Not yet: wgmma (it needs both TF32 halves staged in shared memory), TMA,
 // and a persistent grid; those are a later step.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tf32x3.cuh"
 
 #define SCORE_BIG 1e30f
 
@@ -49,48 +50,6 @@ constexpr int BK = 32;                // depth of one staged slice
 constexpr int LDS = BK + 4;           // padded row of a staged slice
 constexpr int CTS = BN + 8;           // padded row of the output tile
 constexpr int STAGES = 3;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
-               "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::
-               "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
-                                           uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
-  const float rest = v - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
-}
-
-// acc (16x8 fp32) += a (16x8 tf32, row) . b (8x8 tf32, col)
-__device__ __forceinline__ void mma_tf32(float* acc, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // Stage rows [row0, row0 + ROWS) x columns [k0, k0 + BK) of a (rows, d)
 // row-major matrix into dst[ROWS][LDS]; out-of-range elements are zero.

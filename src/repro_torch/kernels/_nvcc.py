@@ -128,4 +128,7 @@ def require(t, name: str, dtype, shape: tuple, device=None) -> None:
 
 
 def stream_ptr(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    """The current stream's raw handle on ``device`` (a CUDA device with an
+    index, as a tensor's is), read without building a ``torch.cuda.Stream``:
+    every launch pays for this on the host."""
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(device.index))

@@ -12,6 +12,7 @@ H100 and how the design answers.  The plain version is
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -21,10 +22,11 @@ from .ref import flash_attention as plain  # noqa: F401  (the plain version)
 
 SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 REPLACES = "src/repro/kernels/flash_attention.py:107"
-MAX_D = 128           # csrc/flash_attention.cu: FA_MAX_D
+MAX_D = 128           # csrc/flash_attention.cu: MAX_D
 launches = 0
 
 
+@functools.cache           # argtypes set once: the launch is on the hot path
 def _lib():
     lib = _nvcc.load("flash_attention")
     fn = lib.flash_attention

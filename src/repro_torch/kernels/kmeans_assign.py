@@ -11,6 +11,7 @@ answers.  The plain version is :func:`repro_torch.kernels.ref.kmeans_assign`.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -22,6 +23,7 @@ REPLACES = "src/repro/kernels/kmeans_assign.py:61"
 launches = 0
 
 
+@functools.cache           # argtypes set once: the launch is on the hot path
 def _lib():
     lib = _nvcc.load("kmeans_assign")
     fn = lib.kmeans_assign

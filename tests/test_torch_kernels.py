@@ -314,8 +314,14 @@ def test_card_topk_kernels_refuse_k_past_the_cap(cuda_dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,K,d,p", [(2048, 256, 8, 1.0), (257, 100, 10, 0.7),
-                                     (300, 16, 100, 0.0)])
+                                     (300, 16, 100, 0.0), (2049, 256, 8, 0.7),
+                                     (300, 16, 1, 0.9), (300, 16, 3, 0.9),
+                                     (600, 64, 16, 0.9), (100, 2100, 16, 1.0)])
 def test_card_kmeans_assign_kernel(cuda_dev, N, K, d, p):
+    """32 codebooks over 16 point batches (V*m over m, as the insert round
+    encodes), exact on integer inputs: N past a multiple of the points a
+    block owns (2,049), d of 1, 3 (padded in registers), 16 and 100 (the
+    path past 32), and K*d past one shared-memory stage (2,100 x 16)."""
     rng = np.random.default_rng(N + K)
     ints = lambda s: torch.as_tensor(                          # noqa: E731
         rng.integers(-3, 4, s).astype(np.float32), device=cuda_dev)

@@ -50,6 +50,15 @@ CASES = [(*s, c, w) for s in SHAPES for c in (True, False)
          for w in (None, 9)]
 IDS = [f"{lq}x{lk}-d{d}-h{hq}/{hkv}-{'causal' if c else 'full'}-w{w}"
        for lq, lk, d, hq, hkv, c, w in CASES]
+# the card test's own shapes beside SHAPES: head dims at the CUDA kernel's
+# edges (one MMA k-step, 72 and 100 not a multiple of 16 or of 4, and 128,
+# its widest), Lq != Lk under a window, GQA 8:1 at D = 128
+WIDE_SHAPES = [(70, 70, 8, 2, 1), (33, 77, 72, 4, 2), (40, 100, 100, 2, 1),
+               (65, 130, 128, 8, 1)]
+CARD_CASES = CASES + [(*s, c, w) for s in WIDE_SHAPES for c in (True, False)
+                      for w in (None, 9)]
+CARD_IDS = [f"{lq}x{lk}-d{d}-h{hq}/{hkv}-{'causal' if c else 'full'}-w{w}"
+            for lq, lk, d, hq, hkv, c, w in CARD_CASES]
 
 
 def _qkv(Lq, Lk, D, Hq, Hkv, seed=0, B=2):
@@ -238,7 +247,8 @@ def cuda_dev():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Lq,Lk,D,Hq,Hkv,causal,window", CASES, ids=IDS)
+@pytest.mark.parametrize("Lq,Lk,D,Hq,Hkv,causal,window", CARD_CASES,
+                         ids=CARD_IDS)
 def test_card_flash_attention_kernel(cuda_dev, Lq, Lk, D, Hq, Hkv, causal,
                                      window):
     q, k, v = (torch.as_tensor(a, device=cuda_dev)
