@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                      # the full run, one card
     python3 chip_smoke.py --parent-log P.log   # beside another run's times
+    python3 chip_smoke.py --parent-tree DIR    # and another tree's top-k
 
 Phases, in order (any failure exits non-zero before the last line):
 
@@ -25,7 +26,13 @@ Phases, in order (any failure exits non-zero before the last line):
    (``centroid_score``, ``posting_scan``; 3xTF32 on the tensor cores) at
    Q = 1, 31, 32, 33, 2048 (both query tiles), x rows not a multiple of
    its 128-row tile, d = 96, 100, 128, 300, aligned and one float off: exact on
-   integer inputs, within the tolerance on normal ones.
+   integer inputs, within the tolerance on normal ones.  ``centroid_topk``
+   and ``posting_scan_topk`` at Q = 1, 31, 32, 33, 256 x d = 96, 100, 128,
+   300 x k = 1, 10, 32, aligned and one float off, on integer data, ties,
+   all masked, duplicated probes and ``qp_ok`` zeros: exact; and on normal
+   data ``centroid_topk`` equals the stable top-k of ``centroid_score``
+   bit for bit.  The phase runs under a watchdog: a kernel that hangs
+   fails the run.
 3. Two main paths at SIFT1M's shape through ``make_index``, each with
    the launch counts reset just before it and read just after it.
    (a) the float plane; (b) the quant plane (``use_pq=True``, PQ16:
@@ -80,7 +87,12 @@ Phases, in order (any failure exits non-zero before the last line):
    V*m codebooks) and the re-train's full re-encode (every pool slot).
    ``centroid_score``, ``posting_scan`` and ``flash_attention`` also
    report the 3xTF32 route's bound (bytes, or three TF32 products at 495
-   TFLOP/s).  With ``--parent-log`` (another tree's output, run first on
+   TFLOP/s).  ``centroid_topk`` (with the cache scan) and
+   ``posting_scan_topk`` are also timed at the serving batch (Q = 32),
+   each with its device time alone (``torch.profiler``); with
+   ``--parent-tree`` (another checkout, unpacked) that tree's two kernels
+   are timed on the same inputs in a subprocess, before and after this
+   tree's.  With ``--parent-log`` (another tree's output, run first on
    the same card) each kernel's line also shows that run's time.  The insert
    locate's argmin is held against the plain version's (a differing pick
    must be a near-tie within the tolerance).  Then a load
@@ -102,7 +114,9 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
+from contextlib import contextmanager
 from unittest import mock
 
 import numpy as np
@@ -115,6 +129,7 @@ PEAK_BYTES = 3.35e12
 # TF32 on the tensor cores, dense; 3xTF32 issues three products per fp32 one
 PEAK_TF32 = 495e12
 TOL = 1e-4           # relative to the score scale: fp32 summation order
+PHASE2_LIMIT_S = 240  # phase 2's watchdog, seconds
 ATTN_TOL = 2e-4      # abs and rel: tests/test_kernels.py:127
 #: the kernels each main path must launch
 PATH_KERNELS = {
@@ -153,6 +168,58 @@ def fail(msg: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextmanager
+def watchdog(seconds: float, what: str):
+    """Fail the run if the block takes longer than ``seconds``: a kernel
+    that hangs (a wrong mbarrier phase or byte count) blocks the host in a
+    synchronize forever, and this ends the process instead."""
+    def fire():
+        print(f"chip_smoke: FAIL: {what} still running after {seconds:.0f} "
+              "s (a kernel hangs?)", file=sys.stderr, flush=True)
+        os._exit(1)
+    timer = threading.Timer(seconds, fire)
+    timer.daemon = True
+    timer.start()
+    try:
+        yield
+    finally:
+        timer.cancel()
+
+
+#: the sources whose ptxas report phase 1 prints one line per instance
+PTXAS_BY_INSTANCE = ("centroid_topk", "posting_scan_topk", "masked_score")
+
+
+def ptxas_instances(log: str) -> list:
+    """(entry, spill store bytes, registers) of each kernel instance in an
+    ``-Xptxas -v`` report, names demangled by ``c++filt`` where it runs and
+    cut to the kernel and its template arguments."""
+    rows, entry, spill = [], None, "?"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry, spill = m.group(1), "?"
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and entry:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            rows.append((entry, spill, m.group(1)))
+            entry = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True,
+                               timeout=30).stdout.split("\n")
+    except (OSError, subprocess.SubprocessError):
+        names = [r[0] for r in rows]
+    out = []
+    for (_, spill, regs), name in zip(rows, names):
+        name = re.sub(r"\(.*$", "", name.replace("(anonymous namespace)::",
+                                                 ""))
+        out.append((name.replace("void ", ""), spill, regs))
+    return out
 
 
 def smi_line() -> str:
@@ -387,6 +454,93 @@ def masked_score_checks(ops, ref, dev, seed: int) -> None:
     say(f"  masked_score vs plain at {n} shapes (Q {MASKED_Q}, d "
         f"{MASKED_D}, aligned and one float off): integer exact, normal "
         f"max abs err {worst:.3g}")
+
+
+#: phase 2's shapes for the warp paths of ``centroid_topk`` and
+#: ``posting_scan_topk``: both query tiles of the centroid kernel (Q <= 32
+#: and above) and one probe group or several for the scan (Q = 256 takes
+#: one), d not a multiple of a 32-deep slice or of 4 floats' copies, k at
+#: both ends of the warp path, aligned and one float off
+TOPK_Q = (1, 31, 32, 33, 256)
+TOPK_D = (96, 100, 128, 300)
+TOPK_K = (1, 10, 32)
+
+
+def topk_checks(ops, ref, dev, seed: int) -> None:
+    """``centroid_topk`` (300 centroids) and ``posting_scan_topk`` (5
+    probes into 20 tiles of 33 slots: P * C = 165, no multiple of a tile)
+    against their plain versions at every shape of ``TOPK_Q`` x ``TOPK_D``
+    x ``TOPK_K``, aligned and one float off, exact on integer inputs:
+    values in [-3, 3], ties (values in [-1, 1]), all masked; for the scan
+    also duplicated probes and a quarter of ``qp_ok`` zero.  Then on
+    normal data ``ops.centroid_topk`` equals the stable top-k of
+    ``ops.centroid_score`` bit for bit, ties included (each centroid
+    twice): one mainloop (``csrc/score_tile.cuh``) scores both."""
+    g = np.random.default_rng(seed + 3)
+
+    def at(arr, off):
+        flat = torch.zeros(arr.size + off, device=dev)
+        flat[off:] = torch.as_tensor(arr.ravel(), device=dev)
+        return flat[off:].view(arr.shape)
+
+    def mask(shape, p):
+        return torch.as_tensor(g.random(shape) < p, device=dev)
+
+    n = 0
+    for kind in ("int", "ties", "masked", "dup", "qp0"):
+        lo, hi = (-1, 2) if kind == "ties" else (-3, 4)
+        p_vis = 0.0 if kind == "masked" else 0.7
+        for d in TOPK_D:
+            for Q in TOPK_Q:
+                for k in TOPK_K:
+                    for off in (0, 1):
+                        def ints(shape):
+                            return at(g.integers(lo, hi, shape).astype(
+                                np.float32), off)
+                        q, c, tiles = ints((Q, d)), ints((300, d)), ints(
+                            (20, 33, d))
+                        vis, valid = mask(300, p_vis), mask((20, 33), p_vis)
+                        pvis = mask(20, 0.9)
+                        probe = torch.as_tensor(g.integers(0, 20, (Q, 5)).astype(
+                            np.int32), device=dev)
+                        if kind == "dup":
+                            probe = torch.cat([probe[:, :3], probe[:, :3]], 1)
+                        qp_ok = mask(probe.shape, 0.75 if kind == "qp0"
+                                     else 1.0).to(torch.int32)
+                        label = f"[{kind} Q={Q} d={d} k={k} offset={off}]"
+                        if kind in ("int", "ties", "masked"):
+                            require_exact(
+                                "centroid_topk" + label,
+                                ops.centroid_topk(q, c, vis, k=k),
+                                ref.centroid_topk(q, c, vis, k))
+                            n += 1
+                        require_exact(
+                            "posting_scan_topk" + label,
+                            ops.posting_scan_topk(q, tiles, valid, pvis,
+                                                  probe, k=k, qp_ok=qp_ok),
+                            ref.posting_scan_topk(q, tiles,
+                                                  valid & pvis[:, None],
+                                                  qp_ok, probe, k))
+                        n += 1
+    m = 0
+    for Q, d in ((1, 128), (31, 100), (33, 300), (256, 128)):
+        half = g.standard_normal((650, d), np.float32)
+        c = torch.as_tensor(np.concatenate([half, half[::-1]]), device=dev)
+        q = torch.as_tensor(g.standard_normal((Q, d), np.float32),
+                            device=dev)
+        vis = mask(1300, 0.8)
+        for k in TOPK_K:
+            ws, wi = ref.stable_topk(ops.centroid_score(q, c, vis), k)
+            require_exact(f"centroid_topk vs centroid_score[Q={Q} d={d} "
+                          f"k={k}]", ops.centroid_topk(q, c, vis, k=k),
+                          (ws, wi.to(torch.int32)))
+            m += 1
+    torch.cuda.synchronize()
+    say(f"  centroid_topk and posting_scan_topk vs plain at {n} integer "
+        f"shapes (Q {TOPK_Q}, d {TOPK_D}, k {TOPK_K}, aligned and one float "
+        f"off; ties, all masked, duplicated probes, qp_ok zeros): exact; "
+        f"centroid_topk == stable top-k of centroid_score on normal data at "
+        f"{m} shapes: bit for bit")
 
 
 def require_attn_close(name, got, want) -> float:
@@ -1021,10 +1175,11 @@ def median_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, kernel: str, reps: int = 20) -> float:
-    """Mean device time of the ``kernel`` launches that ``reps`` calls of
-    ``fn`` make, from ``torch.profiler``: the time on the card alone, where
-    ``median_ms`` also holds the host's launch of a short kernel."""
+def device_ms(fn, kernel: str | None = None, reps: int = 20) -> float:
+    """Mean device time of the ``kernel`` launches (every device event if
+    None) that ``reps`` calls of ``fn`` make, from ``torch.profiler``: the
+    time on the card alone, where ``median_ms`` also holds the host's
+    launch of a short kernel."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1034,7 +1189,8 @@ def device_ms(fn, kernel: str, reps: int = 20) -> float:
         torch.cuda.synchronize()
     us = [getattr(ev, "self_device_time_total",
                   getattr(ev, "self_cuda_time_total", 0.0))
-          for ev in prof.key_averages() if kernel in ev.key
+          for ev in prof.key_averages()
+          if (kernel is None or kernel in ev.key)
           and str(ev.device_type).endswith("CUDA")]
     return sum(us) / reps / 1e3
 
@@ -1166,6 +1322,131 @@ def time_kernels(ops, ref, drv, q_np, counts) -> list:
         2.0 * Q * P * C * d + 2.0 * U * C * d,
         4.0 * Q * d + U * C * (4.0 * d + 1) + 8.0 * Q * P + 8.0 * Q * 10)
     return rows
+
+
+def topk_inputs(ops, drv, q_np) -> dict:
+    """Rows 2 and 5's inputs on the float state: the last step's queries,
+    the centroids, the cache, and the tiles the queries probe, gathered
+    into a table of their own (U distinct probed postings; probe ids
+    renumbered) so that another tree's kernels can be timed on the same
+    bytes (``--parent-tree``)."""
+    from repro_torch.core import version_manager as vm
+    st = drv.state
+    q = torch.as_tensor(q_np, device=drv.device)
+    vis = vm.visible(st.rec_meta, st.allocated, st.global_version)
+    _, probe = ops.centroid_topk(q, st.centroids, vis, k=drv.cfg.nprobe)
+    uniq, inv = torch.unique(probe, return_inverse=True)
+    return dict(q=q, cen=st.centroids, vis=vis, cache=st.cache_vecs,
+                cache_ok=st.cache_valid, nprobe=drv.cfg.nprobe,
+                vecs=st.vectors[uniq].contiguous(),
+                slot_valid=st.slot_valid[uniq].contiguous(),
+                pvis=vis[uniq].contiguous(),
+                probe=inv.to(torch.int32).contiguous())
+
+
+def topk_cases(ops, x) -> dict:
+    """The calls that phase 4 times for rows 2 and 5: name -> a call
+    through ``ops``, which may be another tree's module (only its public
+    functions are used)."""
+    q, q32, P = x["q"], x["q"][:32], x["nprobe"]
+    return {
+        "centroid_topk Q=256": lambda: ops.centroid_topk(
+            q, x["cen"], x["vis"], k=P),
+        "centroid_topk Q=32": lambda: ops.centroid_topk(
+            q32, x["cen"], x["vis"], k=P),
+        "centroid_topk cache scan": lambda: ops.centroid_topk(
+            q, x["cache"], x["cache_ok"], k=10),
+        "posting_scan_topk Q=256": lambda: ops.posting_scan_topk(
+            q, x["vecs"], x["slot_valid"], x["pvis"], x["probe"], k=10),
+        "posting_scan_topk Q=32": lambda: ops.posting_scan_topk(
+            q32, x["vecs"], x["slot_valid"], x["pvis"], x["probe"][:32],
+            k=10),
+    }
+
+
+def topk_work(x) -> dict:
+    """name -> (operations, bytes) of each ``topk_cases`` call: each input
+    read once (for the scan only the distinct probed tiles), each output
+    written once."""
+    d = x["q"].shape[1]
+    C = x["vecs"].shape[1]
+    out = {}
+    for name, Q, M, k in (("centroid_topk Q=256", len(x["q"]),
+                           len(x["cen"]), x["nprobe"]),
+                          ("centroid_topk Q=32", 32, len(x["cen"]),
+                           x["nprobe"]),
+                          ("centroid_topk cache scan", len(x["q"]),
+                           len(x["cache"]), 10)):
+        out[name] = (2.0 * Q * M * d + 2.0 * M * d,
+                     4.0 * (Q * d + M * d) + M + 8.0 * Q * k)
+    for name, probe in (("posting_scan_topk Q=256", x["probe"]),
+                        ("posting_scan_topk Q=32", x["probe"][:32])):
+        Q, P = probe.shape
+        U = int(torch.unique(probe).numel())
+        out[name] = (2.0 * Q * P * C * d + 2.0 * U * C * d,
+                     4.0 * Q * d + U * C * (4.0 * d + 1) + 8.0 * Q * P
+                     + 8.0 * Q * 10)
+    return out
+
+
+#: run in another tree's checkout by ``--parent-tree``: its ``ops`` timed
+#: on this run's inputs with this file's timers
+PARENT_TIMER = """
+import json, sys, torch
+sys.path.insert(0, {src!r})
+sys.path.insert(0, {root!r})
+import chip_smoke as cs
+from repro_torch.kernels import ops
+x = torch.load({path!r}, map_location="cuda")
+print(json.dumps({{n: [cs.median_ms(f), cs.device_ms(f)]
+                  for n, f in cs.topk_cases(ops, x).items()}}))
+"""
+
+
+def parent_topk_times(tree: str, path: str) -> dict:
+    tree, path = os.path.abspath(tree), os.path.abspath(path)
+    out = subprocess.run(
+        [sys.executable, "-c", PARENT_TIMER.format(
+            src=os.path.join(tree, "src"), root=ROOT, path=path)],
+        capture_output=True, text=True, timeout=600, cwd=tree)
+    if out.returncode != 0:
+        fail(f"--parent-tree {tree}: exit {out.returncode}: "
+             f"{out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def time_topk_shapes(ops, drv, q_np, parent_tree=None) -> None:
+    """Rows 2 and 5 at the index paths' batch (Q = 256) and the serving
+    batch (Q = 32), and the cache scan: the time a call (CUDA events,
+    median of 20) and the device time alone (``device_ms``: every kernel
+    of the call, the merge included), beside the fp32 bound and, for the
+    centroid kernel, the 3xTF32 bound.  With ``parent_tree`` (another
+    checkout, a parent commit) its kernels are timed on the same inputs in
+    a subprocess before and after this tree's: parent, change, parent."""
+    x = topk_inputs(ops, drv, q_np)
+    work = topk_work(x)
+    path = os.path.join(parent_tree, "_topk_inputs.pt") if parent_tree \
+        else None
+    before = after = {}
+    if path:
+        torch.save(x, path)
+        before = parent_topk_times(parent_tree, path)
+    mine = {n: (median_ms(f), device_ms(f))
+            for n, f in topk_cases(ops, x).items()}
+    if path:
+        after = parent_topk_times(parent_tree, path)
+        os.remove(path)
+    for name, (ms, dev_ms) in mine.items():
+        b, by = bound(*work[name])
+        line = (f"  {name}: {ms:.4f} ms a call, {dev_ms:.4f} ms on the card;"
+                f" bound {b:.4f} ms ({by})")
+        if name.startswith("centroid_topk"):
+            line += f", 3xTF32 {bound_3xtf32(*work[name]):.4f} ms"
+        if name in before:
+            line += (f"; parent tree {before[name][0]:.4f} / "
+                     f"{after[name][0]:.4f} ms a call, {before[name][1]:.4f}"
+                     f" / {after[name][1]:.4f} ms on the card")
+        say(line)
 
 
 def time_quant_kernels(ops, ref, qdrv, fdrv, q_np, counts) -> list:
@@ -1594,6 +1875,11 @@ def parent_times(path: str) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parent-tree", metavar="DIR",
+                    help="another checkout (a parent commit, unpacked): "
+                         "its centroid_topk and posting_scan_topk are timed "
+                         "on this run's inputs in phase 4, before and after "
+                         "this tree's")
     ap.add_argument("--parent-log", metavar="PATH",
                     help="the standard output of another tree's "
                          "chip_smoke.py run earlier on the same card (a "
@@ -1621,6 +1907,11 @@ def main() -> None:
         f"{time.perf_counter() - t:.1f} s  {json.dumps(built)}")
     for name in _nvcc.kernel_names():        # one entry per instance
         log = _nvcc.build_log(name)
+        if name in PTXAS_BY_INSTANCE:
+            for entry, spill, regs in ptxas_instances(log):
+                say(f"  ptxas {name}: {entry}: registers {regs}, spill "
+                    f"stores {spill} bytes")
+            continue
         regs = re.findall(r"Used (\d+) registers", log)
         spills = re.findall(r"(\d+) bytes spill stores", log)
         say(f"  ptxas {name}: registers {'/'.join(regs)}; spill stores "
@@ -1628,11 +1919,13 @@ def main() -> None:
 
     say("phase 2: kernels against their plain versions")
     t = time.perf_counter()
-    kernel_checks(ops, ref, dev, args.seed)
-    masked_score_checks(ops, ref, dev, args.seed)
-    attention_checks(ops, ref, dev, args.seed)
-    kmeans_checks(ops, ref, dev, args.seed)
-    torch.cuda.empty_cache()
+    with watchdog(PHASE2_LIMIT_S, "phase 2"):
+        kernel_checks(ops, ref, dev, args.seed)
+        masked_score_checks(ops, ref, dev, args.seed)
+        topk_checks(ops, ref, dev, args.seed)
+        attention_checks(ops, ref, dev, args.seed)
+        kmeans_checks(ops, ref, dev, args.seed)
+        torch.cuda.empty_cache()
     say(f"  {time.perf_counter() - t:.1f} s")
 
     paths, counts = {}, {}
@@ -1713,6 +2006,7 @@ def main() -> None:
     fdrv, fq, _, fstream, _ = paths["float"]
     qdrv, qq, _, qstream, _ = paths["quant"]
     rows = time_kernels(ops, ref, fdrv, fq, counts)
+    time_topk_shapes(ops, fdrv, fq, args.parent_tree)
     rows += time_quant_kernels(ops, ref, qdrv, fdrv, qq, counts)
     rows += time_gathers(ops, ref, fdrv, qdrv, oracle_in, counts)
     rows.append(time_attention(ops, ref, dev, counts, args.seed))

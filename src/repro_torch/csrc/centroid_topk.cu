@@ -6,156 +6,187 @@
 // centroid_topk (with its merge_topk running selection).  On the TPU the
 // grid walks the centroid axis in order and carries the running top-k in
 // the output block.  Hopper blocks run in parallel and in no order, so:
-//   pass 1: a block takes 64 queries and one chunk of the centroid axis;
-//           each warp owns 8 queries and keeps their top-k lists in
-//           registers (lane j = j-th best), 32 centroids scored per step,
-//           one per lane; the chunk's lists go to a small partial buffer;
-//   pass 2: one warp per query merges the chunks' lists.
+//   pass 1: a block takes a query tile and one chunk of the centroid axis
+//           and keeps the tile's k-lists; the chunk's lists go to a small
+//           (Q, nchunks, k) buffer;
+//   pass 2: one warp per query merges the chunks' lists
+//           (topk_merge_parts, topk_common.cuh).
 // Selection is by the (score, index) pair in lexicographic order, so the
 // result, ties included, is the same whatever order blocks finish in.
 //
-// Bound on the H100: fp32 arithmetic (2*Q*M*d FLOP against reads of
-// (Q + M) * d floats: at Q = 256, M = 65,504, d = 128 that is 4.3 GFLOP
-// over 34 MB).  The design keeps the score matrix out of device memory,
-// stages a 32 x 128 centroid slice in shared memory (row stride 129, so the
-// 32 lanes read 32 banks), and gives every centroid value loaded from shared
-// memory 8 FMAs (one per query of the warp).  Selection costs one ballot per
-// 32 candidates once the lists are full.  Simple SIMT; no tensor cores yet.
+// Bound on the H100 at the main shape (Q = 256, M = 65,504, d = 128, k =
+// 32): 4.3 GFLOP of products over 34 MB of reads.  In fp32 outside the
+// tensor cores that is 0.064 ms; in 3xTF32 on them (three TF32 products
+// at 495 TFLOP/s) 0.026 ms.
+// Design, k <= 32: the products are masked_score's, run by the same code
+// (score_tile.cuh: 3xTF32 mma.sync, a three-stage cp.async ring of 32-deep
+// slices, the norms from the staged slices), so each score ranked here is
+// bit for bit the score ops.centroid_score gives for the same (q, c, vis).
+// A block owns a query tile (32 rows and 4 warps for Q <= 32, else 64
+// rows and 8 warps) and walks its chunk in 128-centroid tiles; the blocks
+// that share a chunk are adjacent in the launch order, so the chunk comes
+// from HBM once.  After each tile the accumulators, norms and mask meet in
+// a shared score tile (nothing goes to device memory), and the next
+// tile's first two slices are already in flight while the tile is ranked:
+// each warp owns 8 query rows and keeps their k-lists in registers (lane
+// j = j-th best); a lane reads four scores of a row, one ballot filters
+// them against the row's k-th entry, and only the survivors go through
+// topk_insert_lanes.
+// The ranking, not the product, sets the pace (PERF.md, section 6): each
+// (row, chunk) pair builds its list from nothing, and a list's first
+// tiles take most of its inserts, each a chain of shuffles and votes.
+#include "score_tile.cuh"
 #include "topk_common.cuh"
 
-#define CT_WARPS 8
-#define CT_QPW 8                       // queries per warp
-#define CT_BQ (CT_WARPS * CT_QPW)      // queries per block
-#define CT_TM 32                       // centroids per step (one per lane)
-#define CT_DK 128                      // feature slice staged at a time
+namespace {
 
-__global__ void __launch_bounds__(CT_WARPS * 32)
+using namespace score_tile;
+
+template <int BQ>
+struct Split {
+  using T = Tile<BQ>;
+  static constexpr int RPW = BQ / (T::NT / 32);        // rows a warp: 8
+  static constexpr int MIN_BLOCKS = BQ == 32 ? 3 : 2;  // per SM
+  // ring stages 0 and 1, then the score tile from stage 2 on (it may run
+  // past the ring's end), then the norms
+  static constexpr int CT = (STAGES - 1) * T::STAGE;
+  static constexpr int XN = CT + (T::EPI > T::STAGE ? T::EPI : T::STAGE);
+  static constexpr size_t SMEM = sizeof(float) * (XN + BN);
+};
+
+template <int BQ, bool VEC>
+__global__ void __launch_bounds__(Tile<BQ>::NT, Split<BQ>::MIN_BLOCKS)
 centroid_topk_partial(const float* __restrict__ q, const float* __restrict__ c,
                       const uint8_t* __restrict__ vis, int Q, int M, int d,
-                      int k, int chunk, int nchunks,
+                      int k, int chunk, int n_qtiles, int nchunks,
                       float* __restrict__ part_s, int* __restrict__ part_i) {
-  extern __shared__ float smem[];
-  float* qs = smem;                          // [CT_BQ][CT_DK]
-  float* cs = smem + CT_BQ * CT_DK;          // [CT_TM][CT_DK + 1]
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int q0 = blockIdx.y * CT_BQ;
-  const int m_begin = blockIdx.x * chunk;
+  using S = Split<BQ>;
+  extern __shared__ __align__(16) float smem[];
+  float* ct = smem + S::CT;
+  float* xn = smem + S::XN;
+  const int lane = threadIdx.x & 31;
+  const int row0 = (threadIdx.x >> 5) * S::RPW;  // the warp's first row
+  const int q0 = (blockIdx.x % n_qtiles) * BQ;
+  const int ch = blockIdx.x / n_qtiles;
+  const int m_begin = ch * chunk;
   const int m_end = min(M, m_begin + chunk);
-  const bool q_once = d <= CT_DK;
 
-  float ls[CT_QPW];
-  int li[CT_QPW];
+  float ls[S::RPW];
+  int li[S::RPW];
 #pragma unroll
-  for (int qi = 0; qi < CT_QPW; ++qi) topk_empty(ls[qi], li[qi]);
+  for (int r = 0; r < S::RPW; ++r) topk_empty(ls[r], li[r]);
 
-  if (q_once) {
-    for (int e = tid; e < CT_BQ * d; e += blockDim.x) {
-      const int r = e / d, col = e % d;
-      qs[r * CT_DK + col] = (q0 + r < Q) ? q[(size_t)(q0 + r) * d + col] : 0.f;
+  Acc<BQ> acc;
+  float nrm;
+  tile_prologue<BQ, VEC>(smem, q, c, Q, M, d, q0, m_begin);
+  for (int n0 = m_begin; n0 < m_end; n0 += BN) {
+    tile_mainloop<BQ, VEC>(smem, q, c, Q, M, d, q0, n0, acc, nrm);
+    tile_stage<BQ>(ct, xn, acc, nrm);
+    __syncthreads();
+    // stages 0 and 1 are free; stage 2 (under the score tile) is refilled
+    // only after the next mainloop's first barrier
+    if (n0 + BN < m_end)
+      tile_prologue<BQ, VEC>(smem, q, c, Q, M, d, q0, n0 + BN);
+
+    const int c0 = lane * 4;                 // this lane's 4 columns
+    float cn[4];
+    bool in[4], ok[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int m = n0 + c0 + u;
+      in[u] = m < m_end;
+      ok[u] = in[u] && vis[m] != 0;
+      cn[u] = xn[c0 + u];
     }
-  }
-
-  for (int mt = m_begin; mt < m_end; mt += CT_TM) {
-    float acc[CT_QPW];
 #pragma unroll
-    for (int qi = 0; qi < CT_QPW; ++qi) acc[qi] = 0.f;
-    float nrm = 0.f;
-    for (int k0 = 0; k0 < d; k0 += CT_DK) {
-      const int kw = min(CT_DK, d - k0);
-      __syncthreads();   // previous slice fully consumed
-      if (!q_once) {
-        for (int e = tid; e < CT_BQ * kw; e += blockDim.x) {
-          const int r = e / kw, col = e % kw;
-          qs[r * CT_DK + col] =
-              (q0 + r < Q) ? q[(size_t)(q0 + r) * d + k0 + col] : 0.f;
-        }
-      }
-      for (int e = tid; e < CT_TM * kw; e += blockDim.x) {
-        const int r = e / kw, col = e % kw;
-        const int m = mt + r;
-        cs[r * (CT_DK + 1) + col] =
-            (m < m_end) ? c[(size_t)m * d + k0 + col] : 0.f;
-      }
-      __syncthreads();
-      const float* crow = cs + lane * (CT_DK + 1);
-      const float* qrow = qs + warp * CT_QPW * CT_DK;
-      for (int kk = 0; kk < kw; ++kk) {
-        const float cv = crow[kk];
-        nrm += cv * cv;
+    for (int r = 0; r < S::RPW; ++r) {
+      if (q0 + row0 + r >= Q) continue;      // uniform across the warp
+      const float4 a =
+          *reinterpret_cast<const float4*>(ct + (row0 + r) * CTS + c0);
+      const float sc[4] = {tile_score(cn[0], a.x, ok[0]),
+                           tile_score(cn[1], a.y, ok[1]),
+                           tile_score(cn[2], a.z, ok[2]),
+                           tile_score(cn[3], a.w, ok[3])};
+      const float ts = __shfl_sync(REPRO_FULL_MASK, ls[r], k - 1);
+      const int ti = __shfl_sync(REPRO_FULL_MASK, li[r], k - 1);
+      bool any = false;
 #pragma unroll
-        for (int qi = 0; qi < CT_QPW; ++qi)
-          acc[qi] += qrow[qi * CT_DK + kk] * cv;
-      }
-    }
-    const int m = mt + lane;
-    const bool in_range = m < m_end;
-    const bool visible = in_range && vis[m];
+      for (int u = 0; u < 4; ++u)
+        any |= in[u] && lex_less(sc[u], n0 + c0 + u, ts, ti);
+      if (!__any_sync(REPRO_FULL_MASK, any)) continue;
 #pragma unroll
-    for (int qi = 0; qi < CT_QPW; ++qi) {
-      const float s = visible ? nrm - 2.f * acc[qi] : REPRO_BIG;
-      topk_insert_lanes(ls[qi], li[qi], s, m, in_range, k, lane);
+      for (int u = 0; u < 4; ++u)
+        topk_insert_lanes(ls[r], li[r], sc[u], n0 + c0 + u, in[u], k, lane);
     }
   }
 
 #pragma unroll
-  for (int qi = 0; qi < CT_QPW; ++qi) {
-    const int qq = q0 + warp * CT_QPW + qi;
+  for (int r = 0; r < S::RPW; ++r) {
+    const int qq = q0 + row0 + r;
     if (qq < Q && lane < k) {
-      const size_t o = ((size_t)qq * nchunks + blockIdx.x) * k + lane;
-      part_s[o] = ls[qi];
-      part_i[o] = li[qi];
+      const size_t o = ((size_t)qq * nchunks + ch) * k + lane;
+      part_s[o] = ls[r];
+      part_i[o] = li[r];
     }
   }
 }
 
-__global__ void __launch_bounds__(256)
-topk_merge_parts(const float* __restrict__ part_s,
-                 const int* __restrict__ part_i, int Q, int nparts, int k,
-                 float* __restrict__ out_s, int* __restrict__ out_i) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int qq = blockIdx.x * (blockDim.x / 32) + warp;
-  if (qq >= Q) return;                       // whole warp leaves together
-  float ls;
-  int li;
-  topk_empty(ls, li);
-  for (int p = 0; p < nparts; ++p) {
-    const size_t o = ((size_t)qq * nparts + p) * k + lane;
-    const bool has = lane < k;
-    const float s = has ? part_s[o] : CUDART_INF_F;
-    const int i = has ? part_i[o] : INT_MAX;
-    topk_insert_lanes(ls, li, s, i, has && i != INT_MAX, k, lane);
+template <int BQ, bool VEC>
+int launch_partial(const float* q, const float* c, const uint8_t* vis, int Q,
+                   int M, int d, int k, int chunk, int nchunks,
+                   float* part_s, int* part_i, cudaStream_t st) {
+  constexpr size_t smem = Split<BQ>::SMEM;
+  // above 48 KB of shared memory only by opting in, once per device
+  static unsigned long long opted = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 64 && !((opted >> dev) & 1ull)) {
+    cudaError_t err = cudaFuncSetAttribute(
+        centroid_topk_partial<BQ, VEC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    opted |= 1ull << dev;
   }
-  if (lane < k) {
-    out_s[(size_t)qq * k + lane] = ls;
-    out_i[(size_t)qq * k + lane] = li;
-  }
+  const int n_qtiles = (Q + BQ - 1) / BQ;
+  const long long blocks = (long long)n_qtiles * nchunks;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  centroid_topk_partial<BQ, VEC><<<(unsigned)blocks, Tile<BQ>::NT, smem,
+                                   st>>>(q, c, vis, Q, M, d, k, chunk,
+                                         n_qtiles, nchunks, part_s, part_i);
+  return (int)cudaGetLastError();
 }
+
+}  // namespace
 
 // q (Q, d), c (M, d) fp32; vis (M,) bool bytes; 1 <= k <= min(32, M).
 // part_s/part_i: (Q, nchunks, k) scratch; out_s/out_i: (Q, k).
-// ``chunk`` is a multiple of 32 with nchunks * chunk >= M.
+// ``chunk`` is a multiple of 128 with nchunks * chunk >= M; the query tile
+// is 32 rows for Q <= 32, else 64 (kernels/centroid_topk.py sizes the
+// chunks by the same rule).
 extern "C" int centroid_topk(const float* q, const float* c,
                              const uint8_t* vis, int Q, int M, int d, int k,
                              int chunk, int nchunks, float* part_s,
                              int* part_i, float* out_s, int* out_i,
                              void* stream) {
-  const size_t smem =
-      sizeof(float) * (CT_BQ * CT_DK + CT_TM * (CT_DK + 1));
-  cudaError_t err = cudaFuncSetAttribute(
-      centroid_topk_partial, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (k < 1 || k > 32 || chunk % BN != 0) return (int)cudaErrorInvalidValue;
+  if (Q <= 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
-  dim3 grid1(nchunks, (Q + CT_BQ - 1) / CT_BQ);
-  centroid_topk_partial<<<grid1, CT_WARPS * 32, smem, st>>>(
-      q, c, vis, Q, M, d, k, chunk, nchunks, part_s, part_i);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  topk_merge_parts<<<(Q + 7) / 8, 256, 0, st>>>(part_s, part_i, Q, nchunks,
-                                                k, out_s, out_i);
+  const bool vec = d % 4 == 0 && (uintptr_t)q % 16 == 0 &&
+                   (uintptr_t)c % 16 == 0;
+  int err;
+  if (Q <= 32)
+    err = vec ? launch_partial<32, true>(q, c, vis, Q, M, d, k, chunk,
+                                         nchunks, part_s, part_i, st)
+              : launch_partial<32, false>(q, c, vis, Q, M, d, k, chunk,
+                                          nchunks, part_s, part_i, st);
+  else
+    err = vec ? launch_partial<64, true>(q, c, vis, Q, M, d, k, chunk,
+                                         nchunks, part_s, part_i, st)
+              : launch_partial<64, false>(q, c, vis, Q, M, d, k, chunk,
+                                          nchunks, part_s, part_i, st);
+  if (err) return err;
+  topk_merge_parts<<<Q, MERGE_WARPS * 32, 0, st>>>(
+      part_s, part_i, nchunks, k, nullptr, 0, 0, out_s, out_i);
   return (int)cudaGetLastError();
 }
 

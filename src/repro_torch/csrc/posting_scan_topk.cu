@@ -7,123 +7,248 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/posting_scan.py:
 // posting_scan_topk (the probe-indexed tile stream with merge_topk carried
-// in the output block).  Here one block serves one query: its 8 warps take
-// the probes round-robin, each warp streams a probed (C, d) tile from
-// device memory once, reads one slot row per step with the 32 lanes on
-// consecutive floats, reduces ||v||^2 and q.v across the warp, and keeps its
-// own top-k list in registers (lane j = j-th best).  At the end one warp
-// merges the 8 lists through shared memory.  Selection is by the
-// (score, position) pair in lexicographic order, so the tie order does not
-// depend on which warp saw which probe.
+// in the output block).
 //
 // Bound on the H100: device-memory bytes.  Each probed tile (96 x 128 fp32,
-// 48 KB at the slice's shapes) is read once per query and used for 2 FLOP
-// per byte read, far below the card's ~20 FLOP/byte fp32 balance point.  The
-// design reads each tile exactly once per query with coalesced 128-byte
-// warp loads, keeps 4 slot rows in flight per warp, and writes only the
-// (Q, k) result.  Probes shared by several queries are re-read (L2 may catch
-// them); sharing a tile across queries is work for a later kernel.
+// 48 KB at the main path's shapes) is used for 2 FLOP per byte, far below
+// the card's ~20 FLOP/byte fp32 balance point: 403 MB of tiles for 256
+// queries x 32 probes, or 262 MB if every distinct probed tile were read
+// once (0.078 ms at 3.35 TB/s).
+// Design, k <= 32: a block serves one query and a group of its probes,
+// grid (Q, S); at a small batch S > 1 splits the probes so that about two
+// blocks per SM run, and topk_merge_parts (topk_common.cuh) merges the
+// groups' lists.  The block streams its probed tiles through shared memory
+// in units: a unit is a row slice of one tile of at most 48 KB
+// (PS_UNIT_FLOATS), so any (C, d) fits and two blocks share an SM.  A
+// two-stage ring keeps the next unit's copy in flight while the current
+// one is scored: one thread issues it as a Hopper bulk copy (bulk_copy.cuh,
+// completion counted in bytes on an mbarrier) where the tile is 16-byte
+// aligned and d % 4 == 0, else every thread copies 4-byte cp.async
+// elements (the BULK = false instance).  Each thread scores one slot row
+// at a time from shared memory, with no reduction across lanes: it walks
+// the row's features from a start rotated by the row (rows a stride of
+// d floats apart then fall in distinct banks), as
+//     vn = fmaf(v, v, vn);  dot = fmaf(q, v, dot)     (in that order)
+// and s = vn - 2 * dot, so integer inputs are exact.  Each warp keeps its
+// own k-list in registers (lane j = j-th best); a unit's 32 candidates of a
+// warp are filtered against the list's k-th entry with one ballot before
+// any insert (topk_insert_lanes).  At the end one warp merges the block's
+// lists.  Selection is by the (score, position) pair in lexicographic
+// order, so the tie order depends neither on which warp or block saw
+// which probe nor on the order they finish in.
+#include <algorithm>
+
+#include "bulk_copy.cuh"
 #include "topk_common.cuh"
 
-#define PS_WARPS 8
-#define PS_UNROLL 4
+#define PS_UNIT_FLOATS 12288   // 48 KB: the largest staged unit
+#define PS_MAX_THREADS 256
 
-__global__ void __launch_bounds__(PS_WARPS * 32)
+template <bool BULK, bool V4>
+__global__ void __launch_bounds__(PS_MAX_THREADS, 2)
 posting_scan_topk_kernel(const float* __restrict__ q,
                          const float* __restrict__ vec,
                          const uint8_t* __restrict__ valid,
                          const int* __restrict__ qp_ok,
                          const int* __restrict__ probe, int M, int C, int d,
-                         int P, int k, float* __restrict__ out_s,
-                         int* __restrict__ out_i) {
-  extern __shared__ float smem[];
-  float* qsh = smem;                         // [d]
-  float* ms = smem + d;                      // [PS_WARPS * 32]
-  int* mi = (int*)(ms + PS_WARPS * 32);      // [PS_WARPS * 32]
+                         int P, int k, int group, int R, int stage_floats,
+                         float* __restrict__ out_s, int* __restrict__ out_i,
+                         float* __restrict__ part_s,
+                         int* __restrict__ part_i) {
+  extern __shared__ __align__(16) float smem[];
+  const int dq = (d + 3) & ~3;
+  float* qs = smem;                                   // [dq]
+  float* stage = smem + dq;                           // [2][stage_floats]
+  uint64_t* full = reinterpret_cast<uint64_t*>(stage + 2 * stage_floats);
+  float* ms = reinterpret_cast<float*>(full + 2);     // [warps][32]
+  int* mi = reinterpret_cast<int*>(ms + blockDim.x);  // [warps][32]
   const int qq = blockIdx.x;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int p_begin = blockIdx.y * group;
+  const int upt = (C + R - 1) / R;                    // units a tile
+  const int units = (min(P, p_begin + group) - p_begin) * upt;
+  const int* prow = probe + (size_t)qq * P;
 
-  for (int t = threadIdx.x; t < d; t += blockDim.x)
-    qsh[t] = q[(size_t)qq * d + t];
+  // unit u: rows [r0, r0 + rows) of probe p's tile
+  auto unit = [&](int u, int& p, int& r0, int& rows, int& pid) {
+    p = p_begin + u / upt;
+    r0 = (u % upt) * R;
+    rows = min(R, C - r0);
+    pid = min(max(prow[p], 0), M - 1);   // probes come from centroid_topk
+  };
+  auto issue = [&](int u) {
+    int p, r0, rows, pid;
+    unit(u, p, r0, rows, pid);
+    const float* src = vec + ((size_t)pid * C + r0) * d;
+    float* dst = stage + (u & 1) * stage_floats;
+    if (BULK) {
+      if (tid == 0) {
+        const uint32_t bytes = (uint32_t)(rows * d) * 4u;
+        mbar_arrive_expect(&full[u & 1], bytes);
+        bulk_copy_g2s(dst, src, bytes, &full[u & 1]);
+      }
+    } else {
+      for (int e = tid; e < rows * d; e += blockDim.x)
+        cp_async4(dst + e, src + e, 4);
+    }
+  };
+
+  for (int t = tid; t < d; t += blockDim.x) qs[t] = q[(size_t)qq * d + t];
+  if (BULK && tid == 0) {
+    mbar_init(&full[0], 1);
+    mbar_init(&full[1], 1);
+    mbar_fence_init();
+  }
   __syncthreads();
+  for (int u = 0; u < 2; ++u) {
+    if (u < units) issue(u);
+    if (!BULK) cp_async_commit();
+  }
 
+  // the feature walk starts at (r * rot) mod the row's length: rot = 1
+  // where rows are an even number of 16-byte (4-byte) words apart, else 0
+  const int dw = V4 ? d / 4 : d;
+  const int rot = (dw % 2 == 0) ? 1 : 0;
   float ls;
   int li;
   topk_empty(ls, li);
-
-  for (int p = warp; p < P; p += PS_WARPS) {
-    int pid = probe[(size_t)qq * P + p];
-    pid = min(max(pid, 0), M - 1);   // probes come from centroid_topk (< M)
+  for (int u = 0; u < units; ++u) {
+    if (BULK) {
+      mbar_wait(&full[u & 1], (u >> 1) & 1);
+    } else {
+      cp_async_wait<1>();
+      __syncthreads();
+    }
+    const float* tile = stage + (u & 1) * stage_floats;
+    int p, r0, rows, pid;
+    unit(u, p, r0, rows, pid);
     const bool p_ok = qp_ok[(size_t)qq * P + p] != 0;
-    const float* tile = vec + (size_t)pid * C * d;
-    const uint8_t* vrow = valid + (size_t)pid * C;
-    for (int c0 = 0; c0 < C; c0 += PS_UNROLL) {
-      float vn[PS_UNROLL], dot[PS_UNROLL];
-#pragma unroll
-      for (int u = 0; u < PS_UNROLL; ++u) {
-        vn[u] = 0.f;
-        dot[u] = 0.f;
-      }
-      for (int t = lane; t < d; t += 32) {
-        const float qv = qsh[t];
-#pragma unroll
-        for (int u = 0; u < PS_UNROLL; ++u) {
-          if (c0 + u < C) {
-            const float v = tile[(size_t)(c0 + u) * d + t];
-            vn[u] += v * v;
-            dot[u] += qv * v;
+    for (int rb = warp * 32; rb < rows; rb += blockDim.x) {  // warp-uniform
+      const int r = rb + lane;
+      const bool has = r < rows;
+      float sc = REPRO_BIG;
+      if (has) {
+        float vn = 0.f, dot = 0.f;
+        int j = (r * rot) % dw;
+        if (V4) {
+          const float4* row = reinterpret_cast<const float4*>(tile + r * d);
+          const float4* q4 = reinterpret_cast<const float4*>(qs);
+          for (int t = 0; t < dw; ++t) {
+            const float4 v = row[j];
+            const float4 w = q4[j];
+            vn = fmaf(v.x, v.x, vn);
+            vn = fmaf(v.y, v.y, vn);
+            vn = fmaf(v.z, v.z, vn);
+            vn = fmaf(v.w, v.w, vn);
+            dot = fmaf(w.x, v.x, dot);
+            dot = fmaf(w.y, v.y, dot);
+            dot = fmaf(w.z, v.z, dot);
+            dot = fmaf(w.w, v.w, dot);
+            j = j + 1 == dw ? 0 : j + 1;
+          }
+        } else {
+          const float* row = tile + r * d;
+          for (int t = 0; t < dw; ++t) {
+            const float v = row[j];
+            vn = fmaf(v, v, vn);
+            dot = fmaf(qs[j], v, dot);
+            j = j + 1 == dw ? 0 : j + 1;
           }
         }
+        if (p_ok && valid[(size_t)pid * C + r0 + r]) sc = vn - 2.f * dot;
       }
-#pragma unroll
-      for (int u = 0; u < PS_UNROLL; ++u) {
-        const int c = c0 + u;
-        if (c >= C) break;                   // uniform across the warp
-        const float s_vn = warp_sum(vn[u]);
-        const float s_dot = warp_sum(dot[u]);
-        const float s = (p_ok && vrow[c]) ? s_vn - 2.f * s_dot : REPRO_BIG;
-        topk_insert(ls, li, s, p * C + c, k, lane);
-      }
+      topk_insert_lanes(ls, li, sc, p * C + r0 + r, has, k, lane);
     }
+    __syncthreads();                  // every thread is done with the stage
+    if (u + 2 < units) issue(u + 2);
+    if (!BULK) cp_async_commit();
   }
 
-  ms[warp * 32 + lane] = ls;
-  mi[warp * 32 + lane] = li;
+  ms[tid] = ls;
+  mi[tid] = li;
   __syncthreads();
   if (warp != 0) return;
   topk_empty(ls, li);
-  for (int w = 0; w < PS_WARPS; ++w) {
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
     const float s = ms[w * 32 + lane];
     const int i = mi[w * 32 + lane];
     topk_insert_lanes(ls, li, s, i, lane < k && i != INT_MAX, k, lane);
   }
-  if (lane < k) {
+  if (lane >= k) return;
+  if (part_s == nullptr) {            // one group: the final list
     const int p = li / C;
-    const int c = li - p * C;
     out_s[(size_t)qq * k + lane] = ls;
-    out_i[(size_t)qq * k + lane] = probe[(size_t)qq * P + p] * C + c;
+    out_i[(size_t)qq * k + lane] = prow[p] * C + (li - p * C);
+  } else {
+    const size_t o = ((size_t)qq * gridDim.y + blockIdx.y) * k + lane;
+    part_s[o] = ls;
+    part_i[o] = li;
   }
+}
+
+template <bool BULK, bool V4>
+static int launch_scan(dim3 grid, int threads, size_t smem, cudaStream_t st,
+                       const float* q, const float* vec, const uint8_t* valid,
+                       const int* qp_ok, const int* probe, int M, int C,
+                       int d, int P, int k, int group, int R,
+                       int stage_floats, float* out_s, int* out_i,
+                       float* part_s, int* part_i) {
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        posting_scan_topk_kernel<BULK, V4>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  posting_scan_topk_kernel<BULK, V4><<<grid, threads, smem, st>>>(
+      q, vec, valid, qp_ok, probe, M, C, d, P, k, group, R, stage_floats,
+      out_s, out_i, part_s, part_i);
+  return (int)cudaGetLastError();
 }
 
 // q (Q, d), vectors (M, C, d) fp32; valid (M, C) bool bytes (slot validity
 // and posting visibility combined); qp_ok, probe (Q, P) int32;
-// 1 <= k <= min(32, P*C).  out_s (Q, k) fp32, out_i (Q, k) int32.
+// 1 <= k <= min(32, P*C).  out_s (Q, k) fp32, out_i (Q, k) int32.  The
+// probes go in groups of ``group`` (kernels/posting_scan.py sizes them),
+// S = ceil(P / group) blocks a query, S <= 65535; with S > 1, part_s and
+// part_i are (Q, S, k) scratch, else unused.
 extern "C" int posting_scan_topk(const float* q, const float* vec,
                                  const uint8_t* valid, const int* qp_ok,
                                  const int* probe, int Q, int M, int C, int d,
-                                 int P, int k, float* out_s, int* out_i,
+                                 int P, int k, int group, float* out_s,
+                                 int* out_i, float* part_s, int* part_i,
                                  void* stream) {
+  if (k < 1 || k > 32 || group < 1) return (int)cudaErrorInvalidValue;
   if (Q <= 0) return (int)cudaGetLastError();
-  const size_t smem = sizeof(float) * d + PS_WARPS * 32 * (sizeof(float) + sizeof(int));
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        posting_scan_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  posting_scan_topk_kernel<<<Q, PS_WARPS * 32, smem, (cudaStream_t)stream>>>(
-      q, vec, valid, qp_ok, probe, M, C, d, P, k, out_s, out_i);
+  const int S = (P + group - 1) / group;
+  const int R = std::min(C, std::max(1, PS_UNIT_FLOATS / d));  // rows a unit
+  const int threads = std::min(PS_MAX_THREADS, (R + 31) / 32 * 32);
+  const int stage_floats = (R * d + 3) & ~3;
+  const size_t smem = sizeof(float) * (((d + 3) & ~3) + 2 * stage_floats) +
+                      2 * sizeof(uint64_t) +
+                      threads * (sizeof(float) + sizeof(int));
+  const bool v4 = d % 4 == 0;
+  const bool bulk = v4 && (uintptr_t)vec % 16 == 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  float* ps = S > 1 ? part_s : nullptr;
+  int* pi = S > 1 ? part_i : nullptr;
+  const dim3 grid(Q, S);
+  int err = bulk ? launch_scan<true, true>(grid, threads, smem, st, q, vec,
+                                           valid, qp_ok, probe, M, C, d, P, k,
+                                           group, R, stage_floats, out_s,
+                                           out_i, ps, pi)
+            : v4 ? launch_scan<false, true>(grid, threads, smem, st, q, vec,
+                                            valid, qp_ok, probe, M, C, d, P,
+                                            k, group, R, stage_floats, out_s,
+                                            out_i, ps, pi)
+                 : launch_scan<false, false>(grid, threads, smem, st, q, vec,
+                                             valid, qp_ok, probe, M, C, d, P,
+                                             k, group, R, stage_floats, out_s,
+                                             out_i, ps, pi);
+  if (err || S == 1) return err;
+  topk_merge_parts<<<Q, MERGE_WARPS * 32, 0, st>>>(part_s, part_i, S, k,
+                                                    probe, P, C, out_s, out_i);
   return (int)cudaGetLastError();
 }
 

@@ -3,9 +3,11 @@
 Replaces the Pallas TPU kernel ``repro/kernels/centroid_topk.py:
 centroid_topk`` and its ``merge_topk`` running selection: search phase 1
 (top-``nprobe`` postings per query) and the vector-cache scan.  No (Q, M)
-score matrix is written.  Up to k = 32 a warp keeps each list in
-registers; a wider k (up to ``MAX_K``) takes the block-wide path of the
-same source, which keeps the list in shared memory.  The CUDA source is ``csrc/centroid_topk.cu``;
+score matrix is written.  Up to k = 32 the scores are ``masked_score``'s
+3xTF32 products (the shared ``csrc/score_tile.cuh``), ranked in a shared
+score tile with each list in a warp's registers; a wider k (up to
+``MAX_K``) takes the block-wide path of the same source, which keeps the
+list in shared memory.  The CUDA source is ``csrc/centroid_topk.cu``;
 its header note says what bounds it on the H100 and how the design
 answers.  The plain version is :func:`repro_torch.kernels.ref.centroid_topk`.
 """
@@ -22,8 +24,7 @@ SOURCE = "src/repro_torch/csrc/centroid_topk.cu"
 REPLACES = "src/repro/kernels/centroid_topk.py:102"
 WARP_K = 32           # warp path: one list entry per lane
 MAX_K = 1024          # block-wide path (csrc/topk_common.cuh)
-_TM = 32              # centroids scored per step (csrc: CT_TM)
-_BQ = 64              # queries per block (csrc: CT_BQ)
+_BN = 128             # centroids a tile of the warp path (csrc: score_tile::BN)
 _TW = 256             # centroids per round of the wide path (CTW_THREADS)
 _TARGET_BLOCKS = 264  # two blocks per SM of an H100
 launches = 0
@@ -37,12 +38,19 @@ def _lib(name: str):
     return fn
 
 
+def query_tile(Q: int) -> int:
+    """The warp path's query tile (``csrc/centroid_topk.cu``): 32 rows for
+    Q <= 32, else 64."""
+    return 32 if Q <= 32 else 64
+
+
 def split_centroids(Q: int, M: int, wide: bool = False) -> tuple:
-    """(chunk, nchunks): the centroid axis is cut into chunks, one block
-    per (query tile, chunk), so that about two blocks per SM run even
-    when the query batch is small.  The wide path's query tile is one
-    query."""
-    tile, step = (1, _TW) if wide else (_BQ, _TM)
+    """(chunk, nchunks): the centroid axis is cut into ``nchunks`` chunks
+    of ``chunk`` centroids (whole tiles; the last chunk may be shorter),
+    one block per (query tile, chunk), so that about two blocks per SM
+    run even when the query batch is small.  The wide path's query tile
+    is one query."""
+    tile, step = (1, _TW) if wide else (query_tile(Q), _BN)
     q_tiles = -(-Q // tile)
     want = max(1, min(-(-M // step), -(-_TARGET_BLOCKS // q_tiles)))
     chunk = -(-M // want)
@@ -66,14 +74,14 @@ def centroid_topk(q: torch.Tensor, c: torch.Tensor, vis: torch.Tensor,
         raise ValueError(f"centroid_topk: k={k} outside "
                          f"[1, min({MAX_K}, M={M})]")
     wide = k > WARP_K
-    q_grid = Q if wide else (Q + _BQ - 1) // _BQ
-    if M >= 2 ** 31 or q_grid > 65535:
+    chunk, nchunks = split_centroids(max(Q, 1), M, wide)
+    blocks = Q if wide else -(-Q // query_tile(Q)) * nchunks
+    if M >= 2 ** 31 or blocks > (65535 if wide else 2 ** 31 - 1):
         raise ValueError(f"centroid_topk: shape ({Q}, {M}) exceeds the grid")
     out_s = torch.empty((Q, k), dtype=torch.float32, device=q.device)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=q.device)
     if Q == 0:
         return out_s, out_i
-    chunk, nchunks = split_centroids(Q, M, wide)
     part_s = torch.empty((Q, nchunks, k), dtype=torch.float32,
                          device=q.device)
     part_i = torch.empty((Q, nchunks, k), dtype=torch.int32, device=q.device)

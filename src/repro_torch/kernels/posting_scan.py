@@ -12,7 +12,9 @@ and the fused probe scan + top-k.
   ``csrc/posting_scan_gather.cu``.
 * ``posting_scan_topk`` replaces ``repro/kernels/posting_scan.py:
   posting_scan_topk``: search phase 2, a running top-k over the probed
-  tiles, source ``csrc/posting_scan_topk.cu``.
+  tiles (staged by Hopper's bulk copy; at a small batch each query's
+  probes split across blocks, :func:`split_probes`), source
+  ``csrc/posting_scan_topk.cu``.
 
 Each source's header note says what bounds it on the H100 and how the
 design answers.  The plain versions are
@@ -40,6 +42,8 @@ SOURCE_TOPK = "src/repro_torch/csrc/posting_scan_topk.cu"
 REPLACES_TOPK = "src/repro/kernels/posting_scan.py:208"
 WARP_K = 32           # warp path: one list entry per lane
 MAX_K = 1024          # block-wide path (csrc/topk_common.cuh)
+MAX_D = 16384         # the warp path's q row and two one-row stages
+_TARGET_BLOCKS = 264  # two blocks per SM of an H100
 launches = 0
 launches_gather = 0
 launches_topk = 0
@@ -94,10 +98,22 @@ def posting_scan_gather(q: torch.Tensor, vectors: torch.Tensor,
 
 def _lib_topk(name: str):
     fn = getattr(_nvcc.load("posting_scan_topk"), name)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p] * 3
+    ints = 7 if name == "posting_scan_topk" else 6      # + group
+    outs = 5 if name == "posting_scan_topk" else 3      # + part_s, part_i
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * ints
+                   + [ctypes.c_void_p] * outs)
     fn.restype = ctypes.c_int
     return fn
+
+
+def split_probes(Q: int, P: int) -> tuple:
+    """(group, S): the warp path cuts each query's P probes into S groups
+    of ``group`` consecutive probes (the last may be shorter), one block
+    per (query, group), so that about two blocks per SM run when the
+    batch is small; from 264 queries on, S = 1."""
+    S = max(1, min(P, _TARGET_BLOCKS // max(Q, 1), 65535))
+    group = -(-P // S)
+    return group, -(-P // group)
 
 
 def posting_scan_topk(q: torch.Tensor, vectors: torch.Tensor,
@@ -122,16 +138,28 @@ def posting_scan_topk(q: torch.Tensor, vectors: torch.Tensor,
                          f"[1, min({MAX_K}, P*C={P * C})]")
     if M * C >= 2 ** 31 or P * C >= 2 ** 31:
         raise ValueError("posting_scan_topk: pool exceeds int32 slot ids")
+    if k <= WARP_K and d > MAX_D:
+        raise ValueError(f"posting_scan_topk: d={d} exceeds {MAX_D}")
     out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
     if Q == 0:
         return out_s, out_i
-    name = "posting_scan_topk_wide" if k > WARP_K else "posting_scan_topk"
-    err = _lib_topk(name)(q.data_ptr(), vectors.data_ptr(),
-                          valid.data_ptr(), qp_ok.data_ptr(),
-                          probe.data_ptr(), Q, M, C, d, P, k,
-                          out_s.data_ptr(), out_i.data_ptr(),
-                          _nvcc.stream_ptr(dev))
+    args = [q.data_ptr(), vectors.data_ptr(), valid.data_ptr(),
+            qp_ok.data_ptr(), probe.data_ptr(), Q, M, C, d, P, k]
+    if k > WARP_K:
+        err = _lib_topk("posting_scan_topk_wide")(
+            *args, out_s.data_ptr(), out_i.data_ptr(), _nvcc.stream_ptr(dev))
+    else:
+        group, S = split_probes(Q, P)
+        part_s = part_i = None
+        if S > 1:
+            part_s = torch.empty((Q, S, k), dtype=torch.float32, device=dev)
+            part_i = torch.empty((Q, S, k), dtype=torch.int32, device=dev)
+        err = _lib_topk("posting_scan_topk")(
+            *args, group, out_s.data_ptr(), out_i.data_ptr(),
+            None if part_s is None else part_s.data_ptr(),
+            None if part_i is None else part_i.data_ptr(),
+            _nvcc.stream_ptr(dev))
     _nvcc.check(err, "posting_scan_topk")
     launches_topk += 1
     return out_s, out_i

@@ -11,7 +11,9 @@ results differ in the last bits.  Integer-valued inputs make every sum
 exact, so there the scores match exactly too.
 
 The quant plane's three kernels are held against the JAX package in
-tests/test_torch_pq.py.  The CUDA kernels themselves run only on a card:
+tests/test_torch_pq.py.  The launch sizing of the split top-k kernels
+is plain Python and is tested here.  The CUDA kernels themselves run only
+on a card:
 the ``cuda``-marked tests compare each of the seven kernels, and the
 block-wide top-k past k = 32, with its plain version and skip without
 one (``chip_smoke.py`` runs the same checks on the card).
@@ -160,6 +162,66 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 # ---------------------------------------------------------------------------
+# the launch sizing of the two split top-k kernels (plain Python: runs here)
+# ---------------------------------------------------------------------------
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("Q", [1, 31, 32, 33, 256, 2048, 100000])
+@pytest.mark.parametrize("M", [1, 127, 300, 4096, 65504])
+def test_split_centroids_covers_each_centroid_once(Q, M, wide):
+    from repro_torch.kernels import centroid_topk as ct
+    chunk, nchunks = ct.split_centroids(Q, M, wide)
+    step = 256 if wide else 128             # whole tiles or rounds a chunk
+    assert chunk % step == 0 and nchunks >= 1
+    seen = np.zeros(M, np.int64)
+    for i in range(nchunks):
+        lo, hi = i * chunk, min(M, (i + 1) * chunk)
+        assert hi > lo                       # no empty chunk
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+    q_tiles = Q if wide else -(-Q // ct.query_tile(Q))
+    assert q_tiles * nchunks < 2 ** 31       # the 1-D grid's limit
+    assert ct.query_tile(Q) == (32 if Q <= 32 else 64)
+
+
+@pytest.mark.parametrize("Q", [32, 256])
+def test_split_centroids_gives_two_blocks_per_sm(Q):
+    """At the serving batch and the index paths' batch, against the main
+    path's 65,504 centroids: about two blocks per SM of an H100."""
+    from repro_torch.kernels import centroid_topk as ct
+    _, nchunks = ct.split_centroids(Q, 65504)
+    blocks = -(-Q // ct.query_tile(Q)) * nchunks
+    assert 1.5 * H100_SMS <= blocks <= 2.5 * H100_SMS
+
+
+@pytest.mark.parametrize("Q", [1, 31, 32, 33, 256, 300, 100000])
+@pytest.mark.parametrize("P", [1, 3, 32, 64])
+def test_split_probes_covers_each_probe_once(Q, P):
+    from repro_torch.kernels import posting_scan as ps
+    group, S = ps.split_probes(Q, P)
+    assert group >= 1 and 1 <= S <= 65535   # the grid's y limit
+    seen = np.zeros(P, np.int64)
+    for s in range(S):
+        lo, hi = s * group, min(P, (s + 1) * group)
+        assert hi > lo
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+    if Q >= 264:
+        assert S == 1                        # the batch fills the card
+
+
+@pytest.mark.parametrize("Q", [32, 256])
+def test_split_probes_gives_two_blocks_per_sm(Q):
+    """nprobe = 32 at the serving batch (32) and the index paths' (256)."""
+    from repro_torch.kernels import posting_scan as ps
+    _, S = ps.split_probes(Q, 32)
+    assert 1.5 * H100_SMS <= Q * S <= 2.5 * H100_SMS
+
+
+# ---------------------------------------------------------------------------
 # on the card: each CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -216,13 +278,62 @@ def test_card_centroid_score_kernel(cuda_dev, Q, d, off):
     assert torch.equal(got, ref.centroid_score(q, c, x["vis"]))
 
 
+# the top-k kernels' shapes: both query tiles of centroid_topk (Q <= 32
+# and above) and one probe group or several for posting_scan_topk (Q = 256
+# takes one), d not a multiple of a 32-deep slice or of 4 floats' copies,
+# k at both ends of the warp path; M = 300 and P * C = 5 * 33 are not
+# multiples of any tile, and each case runs aligned and one float off
+TOPK_CASES_CARD = [(Q, d, k, off) for Q in (1, 31, 32, 33, 256)
+                   for d in (96, 100, 128, 300)
+                   for k, off in ((1, 0), (10, 1), (32, 0), (32, 1))]
+# integer data kinds: values in [-3, 3], ties (values in [-1, 1]), all
+# masked (every score BIG: order by index alone)
+TOPK_KINDS = ["int", "ties", "masked"]
+
+
+def _topk_inputs(dev, Q, d, off, kind, M=300, G=20, C=33, P=5):
+    x = _card_inputs(dev, Q=Q, M=M, G=G, C=C, d=d, P=P)
+    if kind == "ties":
+        rng = np.random.default_rng(Q + d)
+        for name in ("q", "c", "tiles"):
+            x[name] = torch.as_tensor(rng.integers(
+                -1, 2, tuple(x[name].shape)).astype(np.float32), device=dev)
+    if kind == "masked":
+        x["vis"] = torch.zeros_like(x["vis"])
+        x["valid"] = torch.zeros_like(x["valid"])
+    for name in ("q", "c", "tiles"):
+        x[name] = _offset(x[name], off)
+    return x
+
+
 @pytest.mark.cuda
-def test_card_centroid_topk_kernel(cuda_dev):
-    x = _card_inputs(cuda_dev)
+@pytest.mark.parametrize("kind", TOPK_KINDS)
+@pytest.mark.parametrize("Q,d,k,off", TOPK_CASES_CARD)
+def test_card_centroid_topk_kernel(cuda_dev, Q, d, k, off, kind):
+    x = _topk_inputs(cuda_dev, Q, d, off, kind)
     gs, gi = _counted("centroid_topk", lambda: ops.centroid_topk(
-        x["q"], x["c"], x["vis"], k=32))
-    ws, wi = ref.centroid_topk(x["q"], x["c"], x["vis"], 32)
+        x["q"], x["c"], x["vis"], k=k))
+    ws, wi = ref.centroid_topk(x["q"], x["c"], x["vis"], k)
     assert torch.equal(gi, wi) and torch.equal(gs, ws)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,d", [(1, 128), (31, 100), (33, 300), (256, 128)])
+def test_card_centroid_topk_ranks_centroid_score_exactly(cuda_dev, Q, d):
+    """On real-valued data the top-k kernel ranks the very scores
+    ``centroid_score`` writes (one mainloop, ``csrc/score_tile.cuh``): its
+    output equals the stable top-k of ``ops.centroid_score`` bit for bit,
+    ties included (every centroid appears twice)."""
+    rng = np.random.default_rng(Q + d)
+    t = lambda a: torch.as_tensor(a, device=cuda_dev)          # noqa: E731
+    half = rng.normal(size=(650, d)).astype(np.float32)
+    c = t(np.concatenate([half, half[::-1]]))
+    q = t(rng.normal(size=(Q, d)).astype(np.float32))
+    vis = t(rng.random(1300) < 0.8)
+    for k in (1, 10, 32):
+        gs, gi = ops.centroid_topk(q, c, vis, k=k)
+        ws, wi = ref.stable_topk(ops.centroid_score(q, c, vis), k)
+        assert torch.equal(gs, ws) and torch.equal(gi, wi.to(torch.int32))
 
 
 @pytest.mark.cuda
@@ -236,15 +347,27 @@ def test_card_posting_scan_kernel(cuda_dev, Q, d, off):
 
 
 @pytest.mark.cuda
-def test_card_posting_scan_topk_kernel(cuda_dev):
-    x = _card_inputs(cuda_dev)
+@pytest.mark.parametrize("kind", TOPK_KINDS + ["dup", "qp0"])
+@pytest.mark.parametrize("Q,d,k,off", TOPK_CASES_CARD)
+def test_card_posting_scan_topk_kernel(cuda_dev, Q, d, k, off, kind):
+    """Beside the integer kinds: duplicated probes (each probe listed twice:
+    equal scores, ties by position) and a quarter of ``qp_ok`` zero."""
+    x = _topk_inputs(cuda_dev, Q, d, off, "int" if kind in ("dup", "qp0")
+                     else kind)
     G = x["tiles"].shape[0]
-    vis = torch.ones(G, dtype=torch.bool, device=cuda_dev)
+    probe, P = x["probe"], x["probe"].shape[1]
+    if kind == "dup":
+        probe = torch.cat([probe[:, :3], probe[:, :3]], 1)
+        P = 6
+    rng = np.random.default_rng(Q * d + k)
+    ok = torch.as_tensor((rng.random((Q, P)) >= (0.25 if kind == "qp0"
+                                                  else 0.0)).astype(np.int32),
+                         device=cuda_dev)
+    vis = torch.as_tensor(rng.random(G) < 0.9, device=cuda_dev)
     gs, gi = _counted("posting_scan_topk", lambda: ops.posting_scan_topk(
-        x["q"], x["tiles"], x["valid"], vis, x["probe"], k=10))
-    ok = torch.ones(x["probe"].shape, dtype=torch.int32, device=cuda_dev)
-    ws, wi = ref.posting_scan_topk(x["q"], x["tiles"], x["valid"], ok,
-                                   x["probe"], 10)
+        x["q"], x["tiles"], x["valid"], vis, probe, k=k, qp_ok=ok))
+    ws, wi = ref.posting_scan_topk(x["q"], x["tiles"],
+                                   x["valid"] & vis[:, None], ok, probe, k)
     assert torch.equal(gi, wi) and torch.equal(gs, ws)
 
 
