@@ -31,8 +31,15 @@ Phases, in order (any failure exits non-zero before the last line):
    300 x k = 1, 10, 32, aligned and one float off, on integer data, ties,
    all masked, duplicated probes and ``qp_ok`` zeros: exact; and on normal
    data ``centroid_topk`` equals the stable top-k of ``centroid_score``
-   bit for bit.  The phase runs under a watchdog: a kernel that hangs
-   fails the run.
+   bit for bit.  ``pq_scan_topk`` and ``rerank_topk`` at Q = 1, 31, 32,
+   33, 256 x k = 1, 10, 32, 33, 64, 192 (1024 where P*C allows), on the
+   quant path's tiles, m*C and d unaligned (C = 33, m = 10, d = 100, d =
+   99), P*C past one 4,096-slot chunk and R past one 2,048-candidate
+   chunk, tables and rows one float off, all masked, ties, duplicated
+   probes, ``qp_ok`` zeros and none, spilled postings, empty ADC slots of
+   BIG and +inf, scores at the selection's range bound: exact, and the
+   scan bit for bit on real-valued tables.  The phase runs under a
+   watchdog: a kernel that hangs fails the run.
 3. Two main paths at SIFT1M's shape through ``make_index``, each with
    the launch counts reset just before it and read just after it.
    (a) the float plane; (b) the quant plane (``use_pq=True``, PQ16:
@@ -89,10 +96,14 @@ Phases, in order (any failure exits non-zero before the last line):
    report the 3xTF32 route's bound (bytes, or three TF32 products at 495
    TFLOP/s).  ``centroid_topk`` (with the cache scan) and
    ``posting_scan_topk`` are also timed at the serving batch (Q = 32),
-   each with its device time alone (``torch.profiler``); with
-   ``--parent-tree`` (another checkout, unpacked) that tree's two kernels
-   are timed on the same inputs in a subprocess, before and after this
-   tree's.  With ``--parent-log`` (another tree's output, run first on
+   each with its device time alone (``torch.profiler``), and so are
+   ``pq_scan_topk`` (Q = 256 and 32, R = 192) and ``rerank_topk`` (quant
+   state, k = 10; tiered state, k = 192), the wrapper's own elementwise
+   kernels listed apart; with ``--parent-tree`` (another checkout,
+   unpacked) that tree's kernels are timed on the same inputs (the probed
+   tiles and the reranked rows gathered into tables of their own) in a
+   fresh process, before and after this tree's, and this tree's in a
+   fresh process too.  With ``--parent-log`` (another tree's output, run first on
    the same card) each kernel's line also shows that run's time.  The insert
    locate's argmin is held against the plain version's (a differing pick
    must be a near-tie within the tolerance).  Then a load
@@ -189,7 +200,8 @@ def watchdog(seconds: float, what: str):
 
 
 #: the sources whose ptxas report phase 1 prints one line per instance
-PTXAS_BY_INSTANCE = ("centroid_topk", "posting_scan_topk", "masked_score")
+PTXAS_BY_INSTANCE = ("centroid_topk", "posting_scan_topk", "masked_score",
+                     "pq_scan_topk", "rerank_topk")
 
 
 def ptxas_instances(log: str) -> list:
@@ -541,6 +553,131 @@ def topk_checks(ops, ref, dev, seed: int) -> None:
         f"off; ties, all masked, duplicated probes, qp_ok zeros): exact; "
         f"centroid_topk == stable top-k of centroid_score on normal data at "
         f"{m} shapes: bit for bit")
+
+
+#: phase 2's shapes for the quant plane's phase-2 kernels: ``pq_scan_topk``
+#: at (C, m, ksub, M, P): the quant path's tiles, m*C not a multiple of 16
+#: (the plain-load instance), and P*C past one chunk of 4,096 slots;
+#: ``rerank_topk`` at (M, C, d, R): d a multiple of 4 and not, and R past
+#: one chunk of 2,048 candidates
+QUANT_Q = (1, 31, 32, 33, 256)
+PQ_SHAPES = ((96, 16, 256, 200, 32), (33, 10, 100, 50, 5),
+             (96, 16, 256, 300, 64))
+PQ_K = (1, 10, 32, 33, 64, 192, 1024)
+RR_SHAPES = ((200, 33, 100, 192), (200, 33, 99, 192), (60, 96, 128, 2500))
+RR_K = (1, 10, 32, 33, 64, 192)
+
+
+def quant_checks(ops, ref, dev, seed: int) -> None:
+    """``pq_scan_topk`` and ``rerank_topk`` against their plain versions
+    at every shape of ``QUANT_Q`` x ``PQ_SHAPES`` / ``RR_SHAPES`` x the k
+    of ``PQ_K`` / ``RR_K`` that the shape allows, exact.  The scan: on
+    integer tables (values in [-3, 3]), ties (in [-1, 1]), all probes
+    masked, duplicated probes, a quarter of ``qp_ok`` zero, no ``qp_ok``,
+    tables one float off 16-byte alignment, and on real-valued tables
+    (its sum runs in the plain version's order, so it is bit for bit
+    there too).  The rerank: on integer rows and queries, ties, a third of
+    the postings spilled, a fifth of the ADC slots empty (BIG or +inf),
+    and rows one float off alignment."""
+    g = np.random.default_rng(seed + 5)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    def off(x):
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        flat[1:] = x.reshape(-1)
+        return flat[1:].view(x.shape)
+
+    n = 0
+    for C, m, ksub, M, P in PQ_SHAPES:
+        for kind in ("int", "ties", "masked", "dup", "qp0", "null",
+                     "offset", "real"):
+            for Q in QUANT_Q:
+                lo, hi = (-1, 2) if kind == "ties" else (-3, 4)
+                luts = (g.standard_normal((Q, 2, m, ksub), np.float32)
+                        if kind == "real" else
+                        g.integers(lo, hi, (Q, 2, m, ksub)).astype(np.float32))
+                luts = t(luts)
+                if kind == "offset":
+                    luts = off(luts)
+                codes = t(g.integers(0, ksub, (M, m, C)).astype(np.uint8))
+                slot = t(g.integers(-1, 3, M).astype(np.int32))
+                valid = t(g.random((M, C)) < (0.0 if kind == "masked"
+                                              else 0.7))
+                vis = t(g.random(M) < 0.9)
+                probe = g.integers(0, M, (Q, P)).astype(np.int32)
+                if kind == "dup":
+                    probe[:, P // 2:] = probe[:, :P - P // 2]
+                probe = t(probe)
+                qp_ok = t((g.random((Q, P)) < (0.75 if kind == "qp0"
+                                               else 1.0)).astype(np.int32))
+                for k in PQ_K:
+                    if k > P * C:
+                        continue
+                    got = ops.pq_scan_topk(
+                        luts, codes, slot, valid, vis, probe, k=k,
+                        qp_ok=None if kind == "null" else qp_ok)
+                    require_exact(
+                        f"pq_scan_topk[{kind} Q={Q} C={C} m={m} P={P} k={k}]",
+                        got, ref.pq_scan_topk(luts, codes,
+                                              slot.clamp(0, 1),
+                                              valid & vis[:, None], qp_ok,
+                                              probe, k))
+                    n += 1
+    # the selection's range bound: scores within a few hundred ulps on
+    # both sides of BIG / 2 (m = 1: a score is one table entry), k = the
+    # count below it, so that the bin taken whole holds keys above too
+    for Q in (1, 1, 1):
+        near = g.uniform(0, 6e-5, (Q, 2, 1, 256))
+        luts = t((5e29 * np.where(g.random(near.shape) < 0.5, 1 - near,
+                                  1 + near)).astype(np.float32))
+        codes = t(g.integers(0, 256, (40, 1, 96)).astype(np.uint8))
+        slot = t(g.integers(0, 2, 40).astype(np.int32))
+        valid = t(g.random((40, 96)) < 0.8)
+        vis = torch.ones(40, dtype=torch.bool, device=dev)
+        probe = t(g.integers(0, 40, (Q, 8)).astype(np.int32))
+        qp_ok = torch.ones((Q, 8), dtype=torch.int32, device=dev)
+        full = ref.pq_scan_gather(luts, codes, slot, valid, probe)
+        k = max(1, min(1024, int((full < 5e29).sum())))
+        require_exact(f"pq_scan_topk[range bound k={k}]",
+                      ops.pq_scan_topk(luts, codes, slot, valid, vis, probe,
+                                       k=k),
+                      ref.pq_scan_topk(luts, codes, slot, valid, qp_ok,
+                                       probe, k))
+        n += 1
+    r = 0
+    for M, C, d, R in RR_SHAPES:
+        for kind in ("int", "ties", "spilled", "empty", "offset"):
+            for Q in QUANT_Q:
+                lo, hi = (-1, 2) if kind == "ties" else (-3, 4)
+                q = t(g.integers(lo, hi, (Q, d)).astype(np.float32))
+                vecs = t(g.integers(lo, hi, (M, C, d)).astype(np.float32))
+                if kind == "offset":
+                    vecs = off(vecs)
+                spilled = t(g.random(M) < (0.3 if kind == "spilled" else 0.0))
+                cand = t(np.stack([g.permutation(M * C)[:R]
+                                   for _ in range(Q)]).astype(np.int32))
+                adc = np.sort(g.integers(-50, 50, (Q, R)),
+                              axis=1).astype(np.float32)
+                if kind == "empty":
+                    adc = np.where(g.random((Q, R)) < 0.2,
+                                   np.where(g.random((Q, R)) < 0.5, 1e30,
+                                            np.inf), adc).astype(np.float32)
+                adc = t(adc)
+                for k in RR_K:
+                    require_exact(
+                        f"rerank_topk[{kind} Q={Q} d={d} R={R} k={k}]",
+                        ops.rerank_topk(q, vecs, spilled, cand, adc, k=k),
+                        ref.rerank_topk(q, vecs, spilled, cand, adc, k))
+                    r += 1
+    torch.cuda.synchronize()
+    say(f"  pq_scan_topk vs plain at {n} shapes (Q {QUANT_Q}, (C, m, ksub, "
+        f"M, P) {PQ_SHAPES}, k {PQ_K}; integer, ties, all masked, "
+        f"duplicated probes, qp_ok zeros and none, tables one float off, "
+        f"real-valued tables, scores at the range bound): exact; rerank_topk at {r} shapes (Q "
+        f"{QUANT_Q}, (M, C, d, R) {RR_SHAPES}, k {RR_K}; integer, ties, "
+        "spilled, empty ADC slots BIG and +inf, rows one float off): exact")
 
 
 def require_attn_close(name, got, want) -> float:
@@ -1175,11 +1312,11 @@ def median_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, kernel: str | None = None, reps: int = 20) -> float:
-    """Mean device time of the ``kernel`` launches (every device event if
-    None) that ``reps`` calls of ``fn`` make, from ``torch.profiler``: the
-    time on the card alone, where ``median_ms`` also holds the host's
-    launch of a short kernel."""
+def device_kernels(fn, reps: int = 20) -> dict:
+    """Device kernel name -> mean device ms a call of ``fn`` (``reps``
+    calls under ``torch.profiler``): the time on the card alone, where
+    ``median_ms`` also holds the host's launch of a short kernel, and a
+    kernel apart from a wrapper's elementwise passes."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1187,12 +1324,22 @@ def device_ms(fn, kernel: str | None = None, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = [getattr(ev, "self_device_time_total",
-                  getattr(ev, "self_cuda_time_total", 0.0))
-          for ev in prof.key_averages()
-          if (kernel is None or kernel in ev.key)
-          and str(ev.device_type).endswith("CUDA")]
-    return sum(us) / reps / 1e3
+    out = {}
+    for ev in prof.key_averages():
+        if not str(ev.device_type).endswith("CUDA"):
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if us > 0:
+            out[ev.key] = out.get(ev.key, 0.0) + us / reps / 1e3
+    return out
+
+
+def device_ms(fn, kernel: str | None = None, reps: int = 20) -> float:
+    """Mean device time of the ``kernel`` launches (every device event if
+    None) that a call of ``fn`` makes (``device_kernels``)."""
+    return sum(ms for name, ms in device_kernels(fn, reps).items()
+               if kernel is None or kernel in name)
 
 
 def bound(ops: float, nbytes: float) -> tuple:
@@ -1324,32 +1471,76 @@ def time_kernels(ops, ref, drv, q_np, counts) -> list:
     return rows
 
 
-def topk_inputs(ops, drv, q_np) -> dict:
-    """Rows 2 and 5's inputs on the float state: the last step's queries,
-    the centroids, the cache, and the tiles the queries probe, gathered
-    into a table of their own (U distinct probed postings; probe ids
-    renumbered) so that another tree's kernels can be timed on the same
-    bytes (``--parent-tree``)."""
+def quant_inputs(ops, drv, q_np, k_rerank: int) -> dict:
+    """The quant plane's phase-2 inputs on ``drv``'s state: the lookup
+    tables of the last step's queries, the code tiles of the distinct
+    probed postings (probe ids renumbered) with their codebook slot,
+    ``slot_valid`` and visibility, the ADC stage's output at R =
+    rerank_k, and for the rerank the rows of the postings its candidates
+    fall in (candidate ids renumbered) with their spilled flags.  Saved
+    so that another tree's kernels can be timed on the same bytes
+    (``--parent-tree``)."""
+    from repro_torch.core import version_manager as vm
+    from repro_torch.quant import pq
+    st, cfg = drv.state, drv.cfg
+    q = torch.as_tensor(q_np, device=drv.device)
+    vis = vm.visible(st.rec_meta, st.allocated, st.global_version)
+    _, probe = ops.centroid_topk(q, st.centroids, vis, k=cfg.nprobe)
+    C = st.vectors.shape[1]
+    R = min(cfg.rerank_k, probe.shape[1] * C)
+    luts = pq.lookup_tables(st.pq_codebooks, q)
+    uniq, inv = torch.unique(probe, return_inverse=True)
+    x = dict(q=q, luts=luts.contiguous(), codes=st.codes[uniq].contiguous(),
+             slot=st.pq_posting_slot[uniq].contiguous(),
+             slot_valid=st.slot_valid[uniq].contiguous(),
+             vis=vis[uniq].contiguous(),
+             probe=inv.to(torch.int32).contiguous(), R=R, k=k_rerank)
+    adc, cand = ops.pq_scan_topk(x["luts"], x["codes"], x["slot"],
+                                 x["slot_valid"], x["vis"], x["probe"], k=R)
+    cand = uniq[(cand // C).long()].to(torch.int32) * C + cand % C
+    rows, rinv = torch.unique(cand // C, return_inverse=True)
+    x.update(adc=adc, cand=(rinv * C + cand % C).to(torch.int32).contiguous(),
+             vecs=st.vectors[rows.long()].contiguous(),
+             spilled=st.tier_spilled[rows.long()].contiguous())
+    return x
+
+
+def topk_inputs(ops, drv, q_np, qdrv=None, qq_np=None, tdrv=None,
+                tq_np=None) -> dict:
+    """Phase 4's top-k inputs.  Rows 2 and 5 on the float state: the last
+    step's queries, the centroids, the cache, and the tiles the queries
+    probe, gathered into a table of their own (U distinct probed
+    postings; probe ids renumbered).  Rows 7 and 8 (``quant_inputs``) on
+    the quant state, the rerank at k = 10, and on the tiered state at k =
+    max(10, rerank_k), as ``dispatch_search`` asks there.  All of it is
+    saved so that another tree's kernels can be timed on the same bytes
+    (``--parent-tree``)."""
     from repro_torch.core import version_manager as vm
     st = drv.state
     q = torch.as_tensor(q_np, device=drv.device)
     vis = vm.visible(st.rec_meta, st.allocated, st.global_version)
     _, probe = ops.centroid_topk(q, st.centroids, vis, k=drv.cfg.nprobe)
     uniq, inv = torch.unique(probe, return_inverse=True)
-    return dict(q=q, cen=st.centroids, vis=vis, cache=st.cache_vecs,
-                cache_ok=st.cache_valid, nprobe=drv.cfg.nprobe,
-                vecs=st.vectors[uniq].contiguous(),
-                slot_valid=st.slot_valid[uniq].contiguous(),
-                pvis=vis[uniq].contiguous(),
-                probe=inv.to(torch.int32).contiguous())
+    x = dict(q=q, cen=st.centroids, vis=vis, cache=st.cache_vecs,
+             cache_ok=st.cache_valid, nprobe=drv.cfg.nprobe,
+             vecs=st.vectors[uniq].contiguous(),
+             slot_valid=st.slot_valid[uniq].contiguous(),
+             pvis=vis[uniq].contiguous(),
+             probe=inv.to(torch.int32).contiguous())
+    if qdrv is not None:
+        x["quant"] = quant_inputs(ops, qdrv, qq_np, 10)
+    if tdrv is not None:
+        x["tier"] = quant_inputs(ops, tdrv, tq_np,
+                                 max(10, tdrv.cfg.rerank_k))
+    return x
 
 
 def topk_cases(ops, x) -> dict:
-    """The calls that phase 4 times for rows 2 and 5: name -> a call
+    """The calls that phase 4 times for rows 2, 5, 7 and 8: name -> a call
     through ``ops``, which may be another tree's module (only its public
     functions are used)."""
     q, q32, P = x["q"], x["q"][:32], x["nprobe"]
-    return {
+    cases = {
         "centroid_topk Q=256": lambda: ops.centroid_topk(
             q, x["cen"], x["vis"], k=P),
         "centroid_topk Q=32": lambda: ops.centroid_topk(
@@ -1362,12 +1553,29 @@ def topk_cases(ops, x) -> dict:
             q32, x["vecs"], x["slot_valid"], x["pvis"], x["probe"][:32],
             k=10),
     }
+    if "quant" in x:
+        a = x["quant"]
+        cases["pq_scan_topk Q=256"] = lambda: ops.pq_scan_topk(
+            a["luts"], a["codes"], a["slot"], a["slot_valid"], a["vis"],
+            a["probe"], k=a["R"])
+        cases["pq_scan_topk Q=32"] = lambda: ops.pq_scan_topk(
+            a["luts"][:32], a["codes"], a["slot"], a["slot_valid"],
+            a["vis"], a["probe"][:32], k=a["R"])
+    for key, name in (("quant", "rerank_topk Q=256 k=10"),
+                      ("tier", "rerank_topk tiered k=192")):
+        if key in x:
+            b = x[key]
+            cases[name] = (lambda b=b: ops.rerank_topk(
+                b["q"], b["vecs"], b["spilled"], b["cand"], b["adc"],
+                k=b["k"]))
+    return cases
 
 
 def topk_work(x) -> dict:
     """name -> (operations, bytes) of each ``topk_cases`` call: each input
-    read once (for the scan only the distinct probed tiles), each output
-    written once."""
+    read once (for the scans only the distinct probed tiles), each output
+    written once; for the rerank the candidates' rows that are read (not
+    a spilled posting's, not an empty ADC slot's)."""
     d = x["q"].shape[1]
     C = x["vecs"].shape[1]
     out = {}
@@ -1386,11 +1594,33 @@ def topk_work(x) -> dict:
         out[name] = (2.0 * Q * P * C * d + 2.0 * U * C * d,
                      4.0 * Q * d + U * C * (4.0 * d + 1) + 8.0 * Q * P
                      + 8.0 * Q * 10)
+    if "quant" in x:
+        a = x["quant"]
+        _, V, m, ksub = a["luts"].shape
+        for name, probe in (("pq_scan_topk Q=256", a["probe"]),
+                            ("pq_scan_topk Q=32", a["probe"][:32])):
+            Q, P = probe.shape
+            U = int(torch.unique(probe).numel())
+            out[name] = (1.0 * Q * P * C * m,
+                         4.0 * Q * V * m * ksub + U * C * (m + 1.0)
+                         + 4.0 * U + 8.0 * Q * P + 8.0 * Q * a["R"])
+    for key, name in (("quant", "rerank_topk Q=256 k=10"),
+                      ("tier", "rerank_topk tiered k=192")):
+        if key in x:
+            b = x[key]
+            Q, R = b["cand"].shape
+            read = ((b["adc"] < 5e29)
+                    & ~b["spilled"][(b["cand"] // C).long()])
+            rows = float(read.sum())
+            out[name] = (4.0 * rows * d,
+                         4.0 * rows * d + 4.0 * Q * d + 9.0 * Q * R
+                         + 8.0 * Q * b["k"])
     return out
 
 
-#: run in another tree's checkout by ``--parent-tree``: its ``ops`` timed
-#: on this run's inputs with this file's timers
+#: run in a checkout (another tree's, or this one's) by ``--parent-tree``:
+#: its ``ops`` timed on this run's inputs with this file's timers, in a
+#: fresh process
 PARENT_TIMER = """
 import json, sys, torch
 sys.path.insert(0, {src!r})
@@ -1398,12 +1628,15 @@ sys.path.insert(0, {root!r})
 import chip_smoke as cs
 from repro_torch.kernels import ops
 x = torch.load({path!r}, map_location="cuda")
-print(json.dumps({{n: [cs.median_ms(f), cs.device_ms(f)]
+print(json.dumps({{n: [cs.median_ms(f, cs.TOPK_REPS), cs.device_kernels(f)]
                   for n, f in cs.topk_cases(ops, x).items()}}))
 """
+#: calls a median of phase 4's top-k times takes (a call's time holds the
+#: host's launch, which varies from call to call)
+TOPK_REPS = 50
 
 
-def parent_topk_times(tree: str, path: str) -> dict:
+def tree_topk_times(tree: str, path: str) -> dict:
     tree, path = os.path.abspath(tree), os.path.abspath(path)
     out = subprocess.run(
         [sys.executable, "-c", PARENT_TIMER.format(
@@ -1415,38 +1648,64 @@ def parent_topk_times(tree: str, path: str) -> dict:
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-def time_topk_shapes(ops, drv, q_np, parent_tree=None) -> None:
-    """Rows 2 and 5 at the index paths' batch (Q = 256) and the serving
-    batch (Q = 32), and the cache scan: the time a call (CUDA events,
-    median of 20) and the device time alone (``device_ms``: every kernel
-    of the call, the merge included), beside the fp32 bound and, for the
-    centroid kernel, the 3xTF32 bound.  With ``parent_tree`` (another
-    checkout, a parent commit) its kernels are timed on the same inputs in
-    a subprocess before and after this tree's: parent, change, parent."""
-    x = topk_inputs(ops, drv, q_np)
+def kernel_split(kern: dict, name: str) -> tuple:
+    """(the named kernel's device ms, with its merge; the other kernels'
+    ms by short name) from ``device_kernels``."""
+    own = sum(v for k, v in kern.items() if name in k or "topk_merge" in k)
+    rest = {re.sub(r"^void |<.*$|\(.*$", "", k)[:40]: v
+            for k, v in kern.items()
+            if not (name in k or "topk_merge" in k)}
+    return own, rest
+
+
+def time_topk_shapes(ops, x, parent_tree=None) -> None:
+    """Rows 2, 5, 7 and 8 on ``topk_inputs``: the index paths' batch (Q =
+    256), the serving batch (Q = 32), the cache scan, the ADC scan and the
+    rerank (quant k = 10, tiered k = 192): the time a call (CUDA events,
+    median of 20) and the device time (``device_kernels``, mean of 20):
+    all of it, the kernel's own (with its merge) and the wrapper's other
+    kernels listed apart; beside the fp32 bound and, for the centroid
+    kernel, the 3xTF32 bound.  With ``parent_tree`` (another checkout, a
+    parent commit) its kernels are timed on the same inputs in a fresh
+    process before and after this tree's, and this tree's also in a fresh
+    process (a call's host time differs between a fresh process and this
+    one): parent, change (fresh), change, parent."""
     work = topk_work(x)
     path = os.path.join(parent_tree, "_topk_inputs.pt") if parent_tree \
         else None
-    before = after = {}
+    before = after = sub = {}
     if path:
         torch.save(x, path)
-        before = parent_topk_times(parent_tree, path)
-    mine = {n: (median_ms(f), device_ms(f))
+        before = tree_topk_times(parent_tree, path)
+        sub = tree_topk_times(ROOT, path)
+    mine = {n: (median_ms(f, TOPK_REPS), device_kernels(f))
             for n, f in topk_cases(ops, x).items()}
     if path:
-        after = parent_topk_times(parent_tree, path)
+        after = tree_topk_times(parent_tree, path)
         os.remove(path)
-    for name, (ms, dev_ms) in mine.items():
+
+    def dev(kern, name):
+        own, rest = kernel_split(kern, name.split()[0])
+        text = f"{sum(kern.values()):.4f} ms on the card ({own:.4f} kernel"
+        if rest:
+            text += "; wrapper " + ", ".join(f"{k} {v:.4f}"
+                                              for k, v in rest.items())
+        return text + ")"
+
+    for name, (ms, kern) in mine.items():
         b, by = bound(*work[name])
-        line = (f"  {name}: {ms:.4f} ms a call, {dev_ms:.4f} ms on the card;"
+        line = (f"  {name}: {ms:.4f} ms a call, {dev(kern, name)};"
                 f" bound {b:.4f} ms ({by})")
         if name.startswith("centroid_topk"):
             line += f", 3xTF32 {bound_3xtf32(*work[name]):.4f} ms"
-        if name in before:
-            line += (f"; parent tree {before[name][0]:.4f} / "
-                     f"{after[name][0]:.4f} ms a call, {before[name][1]:.4f}"
-                     f" / {after[name][1]:.4f} ms on the card")
         say(line)
+        if name in before:
+            say(f"    this tree in a fresh process, as the parent's: "
+                f"{sub[name][0]:.4f} ms a call, {dev(sub[name][1], name)}")
+            say(f"    parent tree: {before[name][0]:.4f} / "
+                f"{after[name][0]:.4f} ms a call; "
+                f"{dev(before[name][1], name)} / "
+                f"{dev(after[name][1], name)}")
 
 
 def time_quant_kernels(ops, ref, qdrv, fdrv, q_np, counts) -> list:
@@ -1877,9 +2136,9 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent-tree", metavar="DIR",
                     help="another checkout (a parent commit, unpacked): "
-                         "its centroid_topk and posting_scan_topk are timed "
-                         "on this run's inputs in phase 4, before and after "
-                         "this tree's")
+                         "its centroid_topk, posting_scan_topk, pq_scan_topk "
+                         "and rerank_topk are timed on this run's inputs in "
+                         "phase 4, before and after this tree's")
     ap.add_argument("--parent-log", metavar="PATH",
                     help="the standard output of another tree's "
                          "chip_smoke.py run earlier on the same card (a "
@@ -1923,6 +2182,7 @@ def main() -> None:
         kernel_checks(ops, ref, dev, args.seed)
         masked_score_checks(ops, ref, dev, args.seed)
         topk_checks(ops, ref, dev, args.seed)
+        quant_checks(ops, ref, dev, args.seed)
         attention_checks(ops, ref, dev, args.seed)
         kmeans_checks(ops, ref, dev, args.seed)
         torch.cuda.empty_cache()
@@ -2006,7 +2266,8 @@ def main() -> None:
     fdrv, fq, _, fstream, _ = paths["float"]
     qdrv, qq, _, qstream, _ = paths["quant"]
     rows = time_kernels(ops, ref, fdrv, fq, counts)
-    time_topk_shapes(ops, fdrv, fq, args.parent_tree)
+    time_topk_shapes(ops, topk_inputs(ops, fdrv, fq, qdrv, qq, tdrv, tq),
+                     args.parent_tree)
     rows += time_quant_kernels(ops, ref, qdrv, fdrv, qq, counts)
     rows += time_gathers(ops, ref, fdrv, qdrv, oracle_in, counts)
     rows.append(time_attention(ops, ref, dev, counts, args.seed))

@@ -37,7 +37,15 @@ def _on_card(t: torch.Tensor) -> bool:
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
+    if t.dtype == torch.float32 and t.is_contiguous():
+        return t                  # the common case, without two dispatches
     return t.to(torch.float32).contiguous()
+
+
+def _i32(t: torch.Tensor) -> torch.Tensor:
+    if t.dtype == torch.int32 and t.is_contiguous():
+        return t
+    return t.to(torch.int32).contiguous()
 
 
 def centroid_score(q: torch.Tensor, c: torch.Tensor,
@@ -155,26 +163,28 @@ def pq_scan_topk(luts: torch.Tensor, codes: torch.Tensor,
                  vis: torch.Tensor, probe: torch.Tensor, *, k: int,
                  qp_ok: Optional[torch.Tensor] = None):
     """Fused ADC scan + top-k (quant-plane phase 2).  luts (Q, V, m,
-    ksub); codes (M, m, C) uint8; posting_slot (M,); slot_valid (M, C)
-    bool; vis (M,) bool; probe (Q, P); optional per-(query, probe) mask
-    qp_ok.  Returns (scores (Q, k) ascending, cand (Q, k) int32 flat slot
-    index ``probe*C + c``); masked candidates carry BIG."""
+    ksub); codes (M, m, C) uint8; posting_slot (M,), clamped to [0, V);
+    slot_valid (M, C) bool; vis (M,) bool; probe (Q, P); optional
+    per-(query, probe) mask qp_ok.  Returns (scores (Q, k) ascending,
+    cand (Q, k) int32 flat slot index ``probe*C + c``); masked candidates
+    carry BIG.  On the card the kernel clamps the slot and applies the
+    masks itself: no (M, C) mask or (Q, P) ones are built per call."""
     Q, V = luts.shape[:2]
     C = codes.shape[2]
     P = probe.shape[1]
     if not 0 < k <= P * C:
         raise ValueError(f"pq_scan_topk: k={k} outside [1, P*C]")
+    if _on_card(luts):
+        return _pq.pq_scan_topk(
+            _f32(luts), codes.contiguous(), _i32(posting_slot),
+            slot_valid.contiguous(), vis.contiguous(),
+            None if qp_ok is None else _i32(qp_ok), _i32(probe), k)
     slot = posting_slot.to(torch.int32).clamp(0, V - 1)
     valid = slot_valid & vis[:, None]
     if qp_ok is None:
         qp_ok = torch.ones((Q, P), dtype=torch.int32, device=luts.device)
-    qp_ok = qp_ok.to(torch.int32)
-    if _on_card(luts):
-        return _pq.pq_scan_topk(
-            _f32(luts), codes.contiguous(), slot.contiguous(),
-            valid.contiguous(), qp_ok.contiguous(),
-            probe.to(torch.int32).contiguous(), k)
-    return ref.pq_scan_topk(luts, codes, slot, valid, qp_ok, probe, k)
+    return ref.pq_scan_topk(luts, codes, slot, valid, qp_ok.to(torch.int32),
+                            probe, k)
 
 
 def rerank_topk(q: torch.Tensor, vectors: torch.Tensor,
@@ -189,9 +199,8 @@ def rerank_topk(q: torch.Tensor, vectors: torch.Tensor,
         raise ValueError(f"rerank_topk: k={k} outside [1, R={R}]")
     if _on_card(q):
         return _rr.rerank_topk(_f32(q), _f32(vectors),
-                               tier_spilled.contiguous(),
-                               cand.to(torch.int32).contiguous(), _f32(adc),
-                               k)
+                               tier_spilled.contiguous(), _i32(cand),
+                               _f32(adc), k)
     return ref.rerank_topk(q, vectors, tier_spilled, cand, adc, k)
 
 

@@ -23,13 +23,18 @@ MAX_K = 1024          # csrc/topk_common.cuh: TOPK_BLOCK_MAX_K
 launches = 0
 
 
+_fn = None
+
+
 def _lib():
-    lib = _nvcc.load("rerank_topk")
-    fn = lib.rerank_topk
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
-    return fn
+    global _fn
+    if _fn is None:                 # argtypes once: every call pays for it
+        fn = _nvcc.load("rerank_topk").rerank_topk
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p] * 3
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
 
 
 def rerank_topk(q: torch.Tensor, vectors: torch.Tensor,

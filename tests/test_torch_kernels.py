@@ -222,6 +222,198 @@ def test_split_probes_gives_two_blocks_per_sm(Q):
 
 
 # ---------------------------------------------------------------------------
+# the quant plane's selection rule (csrc/topk_select.cuh) emulated in numpy,
+# and pq_scan_topk's launch sizing (plain Python: runs here)
+# ---------------------------------------------------------------------------
+
+BIG = 1e30
+
+
+def _order_key(s):
+    """order_key: the float's bits made unsigned in the floats' order,
+    -0.0 first made +0.0."""
+    b = np.asarray(s, np.float32).view(np.uint32).astype(np.int64)
+    b = np.where((b & 0x7FFFFFFF) == 0, 0, b)
+    return np.where(b & 0x80000000, ~b & 0xFFFFFFFF, b | 0x80000000)
+
+
+def _block_select(s, key, kk):
+    """block_select: the range the kk-th smallest key lies in (the least
+    key to the largest below BIG's, where those reach kk), digit passes of
+    up to 8 bits from the first bit the range's ends differ in over the
+    keys in the range that share the prefix so far, stopping once the
+    chosen bin is taken whole; then every key below the threshold and the
+    first ``krem`` in the range at it, in array order, those below
+    first."""
+    if kk >= len(s):
+        return s, key
+    ok = _order_key(s)
+    big = int(_order_key(np.float32(BIG / 2)))
+    real = ok[ok < big]
+    hi = int(real.max()) if len(real) >= kk else int(ok.max())
+    lo = int(ok.min())
+    top = (lo ^ hi).bit_length()
+    mask = (0xFFFFFFFF << top) & 0xFFFFFFFF
+    prefix = lo & mask
+    krem = kk
+    while top > 0:
+        width = min(8, top)
+        shift = top - width
+        cand = ok[(ok <= hi) & ((ok & mask) == prefix)]
+        hist = np.bincount((cand >> shift) & ((1 << width) - 1),
+                           minlength=256)
+        ex = np.cumsum(hist) - hist
+        dg = int(np.nonzero((ex < krem) & (krem <= ex + hist))[0][0])
+        krem -= int(ex[dg])
+        prefix |= dg << shift
+        mask |= ((1 << width) - 1) << shift
+        top = shift
+        if hist[dg] == krem:
+            break
+    mk = ok & mask
+    take = np.concatenate([np.nonzero(mk < prefix)[0],
+                           np.nonzero((mk == prefix) & (ok <= hi))[0][:krem]])
+    return s[take], key[take]
+
+
+def _composite(s, key):
+    return (_order_key(s).astype(np.uint64) << np.uint64(32)) | \
+        key.astype(np.uint64)
+
+
+def _rank_emit(s, key):
+    """block_rank_emit: each pair lands at the number of composites (order
+    key << 32 | key) below its own."""
+    c = _composite(s, key)
+    rank = (c[None, :] < c[:, None]).sum(1)
+    assert sorted(rank.tolist()) == list(range(len(s)))
+    out_s, out_k = np.empty_like(s), np.empty_like(key)
+    out_s[rank], out_k[rank] = s, key
+    return out_s, out_k
+
+
+def _emulate_pq_select(row, k, chunk, group):
+    """pq_scan_topk's selection over one query's scores (position = index):
+    each group of ``group`` positions selected chunk by chunk with the
+    kept pairs in front; one group sorts its list and is done, several
+    (a cluster) sort theirs and rank each pair by its index in its own
+    list plus the composites below it in the others, keeping ranks < k."""
+    lists = []
+    for g0 in range(0, len(row), group):
+        run_s = np.empty(0, np.float32)
+        run_k = np.empty(0, np.int64)
+        for c0 in range(g0, min(len(row), g0 + group), chunk):
+            c1 = min(len(row), g0 + group, c0 + chunk)
+            u_s = np.concatenate([run_s, row[c0:c1]])
+            u_k = np.concatenate([run_k, np.arange(c0, c1)])
+            run_s, run_k = _block_select(u_s, u_k, min(k, len(u_s)))
+        lists.append(_rank_emit(run_s, run_k))
+    if len(lists) == 1:
+        return lists[0]
+    out_s, out_k = np.empty(k, np.float32), np.empty(k, np.int64)
+    comps = [_composite(*lst) for lst in lists]
+    for b, (ls, lk) in enumerate(lists):
+        for i in range(len(ls)):
+            rank = i + sum(int(np.searchsorted(c, comps[b][i]))
+                           for r, c in enumerate(comps) if r != b)
+            if rank < k:
+                out_s[rank], out_k[rank] = ls[i], lk[i]
+    return out_s, out_k
+
+
+def _tie_row(rng, n, kind):
+    if kind == "normal":
+        return rng.normal(size=n).astype(np.float32)
+    vals = np.array([-1.0, -0.0, 0.0, 1.0, 2.5, BIG, np.inf], np.float32)
+    if kind == "big":
+        vals = vals[4:]
+    return vals[rng.integers(0, len(vals), n)]
+
+
+@pytest.mark.parametrize("kind", ["ties", "big", "normal"])
+@pytest.mark.parametrize("chunk,group", [(700, 700), (96, 700), (96, 288),
+                                         (700, 192)])
+@pytest.mark.parametrize("k", [1, 2, 31, 32, 33, 64, 192, 699, 700])
+def test_selection_rule_matches_stable_topk(k, chunk, group, kind):
+    """The radix select, the stable compaction and the rank sort give the
+    stable top-k (ties lowest position first, -0.0 equal to +0.0, BIG
+    below +inf), whether the slots come in one chunk or several and in
+    one probe group or several merged by rank."""
+    rng = np.random.default_rng(k + chunk + group + len(kind))
+    row = _tie_row(rng, 700, kind)
+    got_s, got_k = _emulate_pq_select(row, k, chunk, group)
+    want_s, want_k = ref.stable_topk(torch.from_numpy(row)[None], k)
+    np.testing.assert_array_equal(got_k, want_k[0].numpy())
+    np.testing.assert_array_equal(got_s, want_s[0].numpy())
+
+
+@pytest.mark.parametrize("k", [1, 33, 192, 500])
+def test_selection_rule_keeps_out_of_range_keys_out_of_a_taken_bin(k):
+    """Exactly k scores just below BIG / 2, the range's bound, among BIG
+    and scores just above it: the k-th smallest is the largest below, and
+    the scores just above share its bin; the bin is taken whole, but only
+    for the keys in the range."""
+    rng = np.random.default_rng(k)
+    near = rng.uniform(0, 6e-5, 700)         # within ~800 ulps of BIG / 2
+    row = np.where(rng.random(700) < 0.5, np.float32(BIG),
+                   5e29 * (1 + near)).astype(np.float32)
+    pos = rng.choice(700, k, replace=False)
+    row[pos] = (5e29 * (1 - near[pos])).astype(np.float32)
+    for chunk, group in ((700, 700), (96, 700), (700, 350)):
+        got_s, got_k = _emulate_pq_select(row, k, chunk, group)
+        want_s, want_k = ref.stable_topk(torch.from_numpy(row)[None], k)
+        np.testing.assert_array_equal(got_k, want_k[0].numpy())
+        np.testing.assert_array_equal(got_s, want_s[0].numpy())
+
+
+def test_order_key_orders_floats():
+    s = np.array([-np.inf, -BIG, -2.5, -1e-40, -0.0, 0.0, 1e-40, 1.0, BIG,
+                  np.inf], np.float32)
+    ok = _order_key(s)
+    assert (np.diff(ok[[0, 1, 2, 3, 5, 6, 7, 8, 9]]) > 0).all()
+    assert ok[4] == ok[5]                    # -0.0 == +0.0
+
+
+@pytest.mark.parametrize("Q", [1, 31, 32, 33, 66, 67, 256, 100000])
+@pytest.mark.parametrize("P", [1, 3, 32, 64, 1024])
+def test_pq_split_probes_covers_each_probe_once(Q, P):
+    from repro_torch.kernels import pq_scan as pqs
+    group, S = pqs.split_probes(Q, P)
+    assert group >= 1 and 1 <= S <= pqs.MAX_SPLIT    # one portable cluster
+    seen = np.zeros(P, np.int64)
+    for s in range(S):
+        lo, hi = s * group, min(P, (s + 1) * group)
+        assert hi > lo
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+    if Q * 2 > H100_SMS:
+        assert S == 1                        # the batch fills the card
+
+
+def test_pq_split_probes_fills_the_card_at_the_serving_batch():
+    """nprobe = 32, R = 192 at Q = 32: four blocks a query, one tile a warp
+    (8 probes a block), 128 of the 132 SMs; one block a query at Q = 256."""
+    from repro_torch.kernels import pq_scan as pqs
+    assert pqs.split_probes(32, 32) == (8, 4)
+    assert pqs.split_probes(256, 32) == (32, 1)
+
+
+def test_pq_table_limits():
+    """LUT_MAX tables fit pq_scan_topk's least layout at k = 1024, C = 256
+    and P = 1024, 16 bytes more do not; the gather's limit did not shrink below
+    its earlier 216,048 bytes (the tables are all its block holds)."""
+    from repro_torch.kernels import pq_scan as pqs
+    n = pqs.LUT_MAX // 4
+    limit = pqs.SMEM_MAX - pqs.topk_smem(0, 0, 0, 256, 1024, 1024)
+    assert pqs.topk_smem(1, 1, n, 256, 1024, 1024) <= pqs.SMEM_MAX
+    pqs._check_luts("t", 1, 1, n, limit)
+    with pytest.raises(ValueError, match="exceed"):
+        pqs._check_luts("t", 1, 1, n + 4, limit)
+    assert pqs.LUT_MAX_GATHER >= 216048
+    assert pqs.topk_smem(2, 16, 256, 96, 192, 32) < pqs.SMEM_MAX // 4
+
+
+# ---------------------------------------------------------------------------
 # on the card: each CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -457,53 +649,87 @@ def test_card_kmeans_assign_kernel(cuda_dev, N, K, d, p):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+QUANT_Q = [1, 31, 32, 33, 256]
+PQ_K = [1, 10, 32, 33, 64, 192, 1024]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("C,m,ksub,P,k", [(96, 16, 256, 32, 192),
-                                          (33, 10, 100, 8, 64),
-                                          (33, 4, 16, 3, 10)])
-def test_card_pq_scan_topk_kernel(cuda_dev, C, m, ksub, P, k):
-    """The m lookups are summed in the plain version's order, so the
-    kernel matches it bit for bit even on real-valued tables."""
-    rng = np.random.default_rng(C + m + k)
-    Q, M, V = 37, 200, 2
+@pytest.mark.parametrize("kind", ["int", "ties", "masked", "dup", "qp0",
+                                  "null", "offset", "real"])
+@pytest.mark.parametrize("C,m,ksub,M,P", [(96, 16, 256, 200, 32),
+                                          (33, 10, 100, 50, 5),
+                                          (96, 16, 256, 300, 64)])
+@pytest.mark.parametrize("Q", QUANT_Q)
+def test_card_pq_scan_topk_kernel(cuda_dev, Q, C, m, ksub, M, P, kind):
+    """Exact at every k of ``PQ_K`` that P*C allows: the quant path's
+    tiles (one probe group a block from Q = 67 on, a cluster of four or
+    eight below), m*C not a multiple of 16 (the plain-load instance), P*C
+    past one 4,096-slot chunk; integer tables, ties, all masked,
+    duplicated probes, qp_ok zeros and none, tables one float off 16-byte
+    alignment (the plain-load instance).  The m lookups are summed in
+    the plain version's order, so real-valued tables match bit for bit
+    too."""
+    rng = np.random.default_rng(Q + C + m + P + len(kind))
+    V = 2
     t = lambda a: torch.as_tensor(a, device=cuda_dev)          # noqa: E731
-    luts = t(rng.normal(size=(Q, V, m, ksub)).astype(np.float32))
+    lo, hi = (-1, 2) if kind == "ties" else (-3, 4)
+    luts = t(rng.normal(size=(Q, V, m, ksub)).astype(np.float32)
+             if kind == "real" else
+             rng.integers(lo, hi, (Q, V, m, ksub)).astype(np.float32))
+    if kind == "offset":
+        luts = _offset(luts, 1)
     codes = t(rng.integers(0, ksub, (M, m, C)).astype(np.uint8))
-    slot = t(rng.integers(0, V, M).astype(np.int32))
-    valid = t(rng.random((M, C)) < 0.7)
+    slot = t(rng.integers(-1, V + 1, M).astype(np.int32))
+    valid = t(rng.random((M, C)) < (0.0 if kind == "masked" else 0.7))
     vis = t(rng.random(M) < 0.9)
-    probe = t(rng.integers(0, M, (Q, P)).astype(np.int32))
-    qp_ok = t((rng.random((Q, P)) < 0.9).astype(np.int32))
-    gs, gi = _counted("pq_scan_topk", lambda: ops.pq_scan_topk(
-        luts, codes, slot, valid, vis, probe, k=k, qp_ok=qp_ok))
-    ws, wi = ref.pq_scan_topk(luts, codes, slot, valid & vis[:, None],
-                              qp_ok, probe, k)
-    assert torch.equal(gi, wi) and torch.equal(gs, ws)
+    probe = rng.integers(0, M, (Q, P)).astype(np.int32)
+    if kind == "dup":
+        probe[:, P // 2:] = probe[:, :P - P // 2]
+    probe = t(probe)
+    qp_ok = t((rng.random((Q, P)) < (0.75 if kind == "qp0" else 1.0))
+              .astype(np.int32))
+    for k in [k for k in PQ_K if k <= P * C]:
+        gs, gi = _counted("pq_scan_topk", lambda: ops.pq_scan_topk(
+            luts, codes, slot, valid, vis, probe, k=k,
+            qp_ok=None if kind == "null" else qp_ok))
+        ws, wi = ref.pq_scan_topk(luts, codes, slot.clamp(0, V - 1),
+                                  valid & vis[:, None], qp_ok, probe, k)
+        assert torch.equal(gi, wi) and torch.equal(gs, ws), k
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,k,ps,pe", [(192, 10, 0.0, 0.0),
-                                       (192, 192, 0.3, 0.2),
-                                       (64, 10, 0.0, 1.0)])
-def test_card_rerank_topk_kernel(cuda_dev, R, k, ps, pe):
-    """Spilled postings keep their ADC score, empty ADC slots score BIG,
-    ties go to the lower ADC rank (integer data: exact)."""
-    rng = np.random.default_rng(R + k)
-    Q, M, C, d = 37, 200, 33, 100
+@pytest.mark.parametrize("kind", ["int", "ties", "spilled", "empty",
+                                  "offset"])
+@pytest.mark.parametrize("M,C,d,R", [(200, 33, 100, 192), (200, 33, 99, 192),
+                                     (60, 96, 128, 2500)])
+@pytest.mark.parametrize("Q", QUANT_Q)
+def test_card_rerank_topk_kernel(cuda_dev, Q, M, C, d, R, kind):
+    """Spilled postings keep their ADC score, empty ADC slots (BIG and
+    +inf) score BIG, ties go to the lower ADC rank: exact on integer data
+    at k = 1, 10, 32 (warp lists), 33, 64 and 192 (the block selection),
+    d a multiple of 4 and not, rows one float off 16-byte alignment (the
+    scalar instance), R past one 2,048-candidate chunk."""
+    rng = np.random.default_rng(Q + M + d + R + len(kind))
     t = lambda a: torch.as_tensor(a, device=cuda_dev)          # noqa: E731
-    q = t(rng.integers(-1, 2, (Q, d)).astype(np.float32))
-    vecs = t(rng.integers(-1, 2, (M, C, d)).astype(np.float32))
-    spilled = t(rng.random(M) < ps)
+    lo, hi = (-1, 2) if kind == "ties" else (-3, 4)
+    q = t(rng.integers(lo, hi, (Q, d)).astype(np.float32))
+    vecs = t(rng.integers(lo, hi, (M, C, d)).astype(np.float32))
+    if kind == "offset":
+        vecs = _offset(vecs, 1)
+    spilled = t(rng.random(M) < (0.3 if kind == "spilled" else 0.0))
     cand = t(np.stack([rng.permutation(M * C)[:R] for _ in range(Q)])
              .astype(np.int32))
     adc = np.sort(rng.integers(-50, 50, (Q, R)), axis=1).astype(np.float32)
-    empty = rng.random((Q, R)) < pe
-    adc = t(np.where(empty, np.where(rng.random((Q, R)) < 0.5, 1e30,
-                                     np.inf), adc).astype(np.float32))
-    gs, gi = _counted("rerank_topk", lambda: ops.rerank_topk(
-        q, vecs, spilled, cand, adc, k=k))
-    ws, wi = ref.rerank_topk(q, vecs, spilled, cand, adc, k)
-    assert torch.equal(gi, wi) and torch.equal(gs, ws)
+    if kind == "empty":
+        adc = np.where(rng.random((Q, R)) < 0.2,
+                       np.where(rng.random((Q, R)) < 0.5, 1e30, np.inf),
+                       adc).astype(np.float32)
+    adc = t(adc)
+    for k in [1, 10, 32, 33, 64, 192]:
+        gs, gi = _counted("rerank_topk", lambda: ops.rerank_topk(
+            q, vecs, spilled, cand, adc, k=k))
+        ws, wi = ref.rerank_topk(q, vecs, spilled, cand, adc, k)
+        assert torch.equal(gi, wi) and torch.equal(gs, ws), k
 
 
 @pytest.mark.cuda
