@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                      # the full run, one card
     python3 chip_smoke.py --parent-log P.log   # beside another run's times
-    python3 chip_smoke.py --parent-tree DIR    # and another tree's top-k
+    python3 chip_smoke.py --parent-tree DIR    # and another tree's kernels
 
 Phases, in order (any failure exits non-zero before the last line):
 
@@ -38,8 +38,14 @@ Phases, in order (any failure exits non-zero before the last line):
    chunk, tables and rows one float off, all masked, ties, duplicated
    probes, ``qp_ok`` zeros and none, spilled postings, empty ADC slots of
    BIG and +inf, scores at the selection's range bound: exact, and the
-   scan bit for bit on real-valued tables.  The phase runs under a
-   watchdog: a kernel that hangs fails the run.
+   scan bit for bit on real-valued tables.  ``posting_scan_gather`` and
+   ``pq_scan_gather`` at Q = 1, 31, 32, 33, 256 on the oracle's tiles, d
+   = 99, a tile of four 48 KB staging units, m*C and C no multiples of
+   16: on integer data, one long run of pairs on a posting, duplicated
+   probes, every posting invisible, inputs one float off: exact; on
+   normal data the ADC gather bit for bit, the float gather within the
+   tolerance.  The phase runs under a watchdog: a kernel that hangs
+   fails the run.
 3. Two main paths at SIFT1M's shape through ``make_index``, each with
    the launch counts reset just before it and read just after it.
    (a) the float plane; (b) the quant plane (``use_pq=True``, PQ16:
@@ -56,10 +62,10 @@ Phases, in order (any failure exits non-zero before the last line):
    reported and not gated, and the two paths' recalls side by side.
    (e) the unfused search oracle on both states with the last step's
    256 queries: ``centroid_score`` -> stable top-``nprobe`` ->
-   ``posting_scan_gather`` -> the cache -> stable top-10 against the
-   fused search (scores within the tolerance, ids equal but at
-   near-ties); ``pq_scan_gather`` on the quant search's probes and
-   tables -> stable top-``rerank_k`` equal to ``pq_scan_topk`` exactly.
+   ``posting_scan_gather`` -> the cache -> stable top-10 equal to the
+   fused search, ids and scores bit for bit; ``pq_scan_gather`` on the
+   quant search's probes and tables -> stable top-``rerank_k`` equal to
+   ``pq_scan_topk`` exactly.
    (f) the tiered path: the quant path with the cold tier
    (``use_tier``, ``tier_async``, 256 moves per tick, ``TIER_HOT_MAX``
    float-resident postings), at least ``TIER_SHARE`` of the live
@@ -97,13 +103,14 @@ Phases, in order (any failure exits non-zero before the last line):
    TFLOP/s).  ``centroid_topk`` (with the cache scan) and
    ``posting_scan_topk`` are also timed at the serving batch (Q = 32),
    each with its device time alone (``torch.profiler``), and so are
-   ``pq_scan_topk`` (Q = 256 and 32, R = 192) and ``rerank_topk`` (quant
-   state, k = 10; tiered state, k = 192), the wrapper's own elementwise
-   kernels listed apart; with ``--parent-tree`` (another checkout,
-   unpacked) that tree's kernels are timed on the same inputs (the probed
-   tiles and the reranked rows gathered into tables of their own) in a
-   fresh process, before and after this tree's, and this tree's in a
-   fresh process too.  With ``--parent-log`` (another tree's output, run first on
+   ``pq_scan_topk`` (Q = 256 and 32, R = 192), ``rerank_topk`` (quant
+   state, k = 10; tiered state, k = 192) and the two gathers (Q = 256
+   and 32), the wrapper's own elementwise kernels listed apart; with
+   ``--parent-tree`` (another checkout, unpacked) that tree's kernels
+   are timed on the same inputs (the probed tiles and the reranked rows
+   gathered into tables of their own) in a fresh process, before and
+   after this tree's, and this tree's in a fresh process too.  With
+   ``--parent-log`` (another tree's output, run first on
    the same card) each kernel's line also shows that run's time.  The insert
    locate's argmin is held against the plain version's (a differing pick
    must be a near-tie within the tolerance).  Then a load
@@ -201,7 +208,8 @@ def watchdog(seconds: float, what: str):
 
 #: the sources whose ptxas report phase 1 prints one line per instance
 PTXAS_BY_INSTANCE = ("centroid_topk", "posting_scan_topk", "masked_score",
-                     "pq_scan_topk", "rerank_topk")
+                     "pq_scan_topk", "rerank_topk", "posting_scan_gather",
+                     "pq_scan_gather")
 
 
 def ptxas_instances(log: str) -> list:
@@ -680,6 +688,97 @@ def quant_checks(ops, ref, dev, seed: int) -> None:
         "spilled, empty ADC slots BIG and +inf, rows one float off): exact")
 
 
+#: phase 2's shapes for the two gathers: ``posting_scan_gather`` at (C, d,
+#: M, P): the oracle's tiles, d no multiple of 4 (the plain-copy
+#: instance), a tile of four 48 KB staging units; ``pq_scan_gather`` at
+#: (C, m, ksub, M, P): the quant path's tiles, m*C and C no multiples of
+#: 16, C = 20 (m*C a multiple of 16, C not); at Q = 1, 31, 32, 33, 256
+#: (the ADC scan's probe split and the inversion's edges)
+GATHER_Q = (1, 31, 32, 33, 256)
+PSG_SHAPES = ((96, 128, 400, 32), (33, 99, 50, 5), (133, 300, 20, 4))
+PQG_SHAPES = ((96, 16, 256, 200, 32), (33, 10, 100, 50, 5),
+              (20, 4, 16, 60, 6))
+GATHER_KINDS = ("int", "same", "dup", "masked", "offset", "normal")
+
+
+def gather_checks(ops, ref, dev, seed: int) -> None:
+    """``posting_scan_gather`` and ``pq_scan_gather`` against their plain
+    versions at every shape of ``PSG_SHAPES`` / ``PQG_SHAPES`` x
+    ``GATHER_Q`` x ``GATHER_KINDS``: integer data (exact), every pair on
+    one posting (one long run, cut into chunks), duplicated probes within
+    a query and across queries, every posting invisible, inputs one float
+    off 16-byte alignment (q and the vectors; the tables), and normal data
+    (the float gather within the tolerance; the ADC gather bit for bit:
+    it sums in the plain version's order).  A quarter of the postings are
+    invisible and the codebook slots run -1 .. V (clamped)."""
+    g = np.random.default_rng(seed + 7)
+
+    def t(a, off=0):
+        flat = torch.zeros(a.size + off, dtype=torch.float32, device=dev)
+        flat[off:] = torch.as_tensor(a.ravel(), device=dev)
+        return flat[off:].view(a.shape)
+
+    def data(kind, shape):
+        return (g.standard_normal(shape, np.float32) if kind == "normal"
+                else g.integers(-3, 4, shape).astype(np.float32))
+
+    def probes(kind, M, Q, P):
+        if kind == "same":
+            return torch.full((Q, P), M // 2, dtype=torch.int32, device=dev)
+        pr = g.integers(0, M, (Q, P)).astype(np.int32)
+        if kind == "dup":
+            pr[:, P - P // 2:] = pr[:, :P // 2]
+            pr[Q // 2] = pr[0]
+        return torch.as_tensor(pr, device=dev)
+
+    def vis_of(kind, M):
+        return torch.as_tensor(np.zeros(M, bool) if kind == "masked"
+                               else np.arange(M) % 4 != 1, device=dev)
+
+    n, worst = 0, 0.0
+    for C, d, M, P in PSG_SHAPES:
+        for kind in GATHER_KINDS:
+            for Q in GATHER_Q:
+                off = 1 if kind == "offset" else 0
+                q, vecs = t(data(kind, (Q, d)), off), t(data(kind, (M, C, d)),
+                                                        off)
+                sv = torch.as_tensor(g.random((M, C)) < 0.7, device=dev)
+                vis, pr = vis_of(kind, M), probes(kind, M, Q, P)
+                got = ops.posting_scan_gather(q, vecs, sv, vis, pr)
+                want = ref.posting_scan_gather(q, vecs, sv & vis[:, None], pr)
+                label = f"posting_scan_gather[{kind} Q={Q} C={C} d={d}]"
+                if kind == "normal":
+                    worst = max(worst, require_close(label, got, want))
+                else:
+                    require_exact(label, (got,), (want,))
+                n += 1
+    m_ = 0
+    for C, m, ksub, M, P in PQG_SHAPES:
+        for kind in GATHER_KINDS:
+            for Q in GATHER_Q:
+                V = 2
+                luts = t(data(kind, (Q, V, m, ksub)),
+                         1 if kind == "offset" else 0)
+                codes = torch.as_tensor(g.integers(0, ksub, (M, m, C)).astype(
+                    np.uint8), device=dev)
+                slot = torch.as_tensor((np.arange(M) % (V + 2) - 1).astype(
+                    np.int32), device=dev)
+                sv = torch.as_tensor(g.random((M, C)) < 0.7, device=dev)
+                vis, pr = vis_of(kind, M), probes(kind, M, Q, P)
+                require_exact(
+                    f"pq_scan_gather[{kind} Q={Q} C={C} m={m}]",
+                    (ops.pq_scan_gather(luts, codes, slot, sv, vis, pr),),
+                    (ref.pq_scan_gather(luts, codes, slot.clamp(0, V - 1),
+                                        sv & vis[:, None], pr),))
+                m_ += 1
+    torch.cuda.synchronize()
+    say(f"  posting_scan_gather vs plain at {n} shapes (Q {GATHER_Q}, (C, d, "
+        f"M, P) {PSG_SHAPES}; {', '.join(GATHER_KINDS)}): exact on integer "
+        f"data, normal max abs err {worst:.3g}; pq_scan_gather at {m_} "
+        f"shapes ((C, m, ksub, M, P) {PQG_SHAPES}, the same kinds, slots "
+        "-1 .. V): exact, real-valued tables included")
+
+
 def require_attn_close(name, got, want) -> float:
     """|kernel - plain| <= ATTN_TOL * (1 + |plain|) everywhere: every row
     of these shapes has at least one valid key (a row with none has no
@@ -1029,11 +1128,11 @@ def oracle_checks(ops, ref, fdrv, qdrv, fq_np, qq_np, log=say) -> dict:
     card), with the launch counts reset before and read after.
 
     Float: ``centroid_score`` -> a stable top-``nprobe`` ->
-    ``posting_scan_gather`` -> the cache scores -> a stable top-10 against
-    the fused ``search`` on the float state: the score lists within
-    ``TOL * scale``, and the ids identical except at near-ties (where the
-    ids differ at a rank, the fused pick's own score, recomputed in
-    float64, is within the tolerance of the oracle's score there).
+    ``posting_scan_gather`` -> the cache scores -> a stable top-10 equals
+    the fused ``search`` on the float state, ids and scores bit for bit
+    (the gather and ``posting_scan_topk`` walk a row with one function,
+    and ``centroid_topk`` ranks the very scores ``centroid_score``
+    writes).
     Quant: ``pq_scan_gather`` on the search's own probes and tables -> a
     stable top-``rerank_k`` equals ``pq_scan_topk``'s candidates and
     scores exactly.  Each gather is also held against its plain version
@@ -1058,32 +1157,17 @@ def oracle_checks(ops, ref, fdrv, qdrv, fq_np, qq_np, log=say) -> dict:
                        st.cache_ids.expand(Q, -1)], 1)
     want_s, idx = ref.stable_topk(all_s, k)
     want = torch.where(want_s < 5e29, torch.gather(all_i, 1, idx), -1)
-    err = require_close("oracle: fused search scores vs unfused", scores,
-                        want_s)
-    tol = TOL * score_scale(want_s)
-    diff = found != want
-    if bool(diff.any()):
-        fid = found[diff].long()
-        loc = st.id_loc[fid.clamp(min=0)].long()
-        d = st.vectors.shape[-1]
-        v = torch.where((loc >= 0)[:, None],
-                        st.vectors.view(-1, d)[loc.clamp(min=0)],
-                        st.cache_vecs[(-2 - loc).clamp(min=0)]).double()
-        qd = q[torch.nonzero(diff)[:, 0]].double()
-        own = (v * v).sum(-1) - 2 * (qd * v).sum(-1)
-        gap = (own - want_s[diff].double()).abs()
-        if bool((fid < 0).any()) or bool((gap > tol).any()):
-            fail(f"oracle: fused search ids differ from the unfused "
-                 f"composition beyond near-ties (max gap "
-                 f"{float(gap.max()):.3g} > {tol:.3g})")
+    # one row walk scores the gather and the fused scan (row_score.cuh),
+    # and one mainloop the cache's two calls: the composition is exact
+    require_exact("oracle: fused search vs unfused composition",
+                  (found, scores), (want, want_s))
     gather_err = require_close(
         "posting_scan_gather, oracle inputs", ps,
         ref.posting_scan_gather(q, st.vectors, st.slot_valid & vis[:, None],
                                 pr))
-    log(f"  float: fused search == unfused composition on {Q} queries "
-        f"(scores within {err:.3g} of tolerance {tol:.3g}; "
-        f"{int(diff.sum())} ids differ at near-ties); posting_scan_gather "
-        f"vs plain max err {gather_err:.3g}")
+    log(f"  float: fused search == unfused composition on {Q} queries, "
+        f"ids and scores bit for bit; posting_scan_gather vs plain max err "
+        f"{gather_err:.3g}")
 
     st, cfg = qdrv.state, qdrv.cfg
     qq = torch.as_tensor(qq_np, device=qdrv.device)
@@ -1507,12 +1591,13 @@ def quant_inputs(ops, drv, q_np, k_rerank: int) -> dict:
 
 def topk_inputs(ops, drv, q_np, qdrv=None, qq_np=None, tdrv=None,
                 tq_np=None) -> dict:
-    """Phase 4's top-k inputs.  Rows 2 and 5 on the float state: the last
-    step's queries, the centroids, the cache, and the tiles the queries
-    probe, gathered into a table of their own (U distinct probed
-    postings; probe ids renumbered).  Rows 7 and 8 (``quant_inputs``) on
-    the quant state, the rerank at k = 10, and on the tiered state at k =
-    max(10, rerank_k), as ``dispatch_search`` asks there.  All of it is
+    """Phase 4's top-k and gather inputs.  Rows 2, 4 and 5 on the float
+    state: the last step's queries, the centroids, the cache, and the
+    tiles the queries probe, gathered into a table of their own (U
+    distinct probed postings; probe ids renumbered).  Rows 6-8
+    (``quant_inputs``) on the quant state, the rerank at k = 10, and on
+    the tiered state at k = max(10, rerank_k), as ``dispatch_search``
+    asks there.  All of it is
     saved so that another tree's kernels can be timed on the same bytes
     (``--parent-tree``)."""
     from repro_torch.core import version_manager as vm
@@ -1536,7 +1621,7 @@ def topk_inputs(ops, drv, q_np, qdrv=None, qq_np=None, tdrv=None,
 
 
 def topk_cases(ops, x) -> dict:
-    """The calls that phase 4 times for rows 2, 5, 7 and 8: name -> a call
+    """The calls that phase 4 times for rows 2 and 4-8: name -> a call
     through ``ops``, which may be another tree's module (only its public
     functions are used)."""
     q, q32, P = x["q"], x["q"][:32], x["nprobe"]
@@ -1568,6 +1653,17 @@ def topk_cases(ops, x) -> dict:
             cases[name] = (lambda b=b: ops.rerank_topk(
                 b["q"], b["vecs"], b["spilled"], b["cand"], b["adc"],
                 k=b["k"]))
+    for Q in (256, 32):
+        cases[f"posting_scan_gather Q={Q}"] = (
+            lambda Q=Q: ops.posting_scan_gather(
+                q[:Q], x["vecs"], x["slot_valid"], x["pvis"],
+                x["probe"][:Q]))
+        if "quant" in x:
+            a = x["quant"]
+            cases[f"pq_scan_gather Q={Q}"] = (
+                lambda Q=Q: ops.pq_scan_gather(
+                    a["luts"][:Q], a["codes"], a["slot"], a["slot_valid"],
+                    a["vis"], a["probe"][:Q]))
     return cases
 
 
@@ -1615,7 +1711,39 @@ def topk_work(x) -> dict:
             out[name] = (4.0 * rows * d,
                          4.0 * rows * d + 4.0 * Q * d + 9.0 * Q * R
                          + 8.0 * Q * b["k"])
+    for Q in (256, 32):
+        probe = x["probe"][:Q]
+        U = int(torch.unique(probe).numel())
+        out[f"posting_scan_gather Q={Q}"] = gather_work(
+            Q, probe.shape[1], U, C, d)
+        if "quant" in x:
+            a = x["quant"]
+            probe = a["probe"][:Q]
+            U = int(torch.unique(probe).numel())
+            out[f"pq_scan_gather Q={Q}"] = pq_gather_work(
+                Q, probe.shape[1], U, C, *a["luts"].shape[1:])
     return out
+
+
+def gather_work(Q: int, P: int, U: int, C: int, d: int) -> tuple:
+    """``posting_scan_gather``'s operations and bytes: every (query,
+    probe) slot's dot product and each distinct probed tile's norms; the
+    queries, the U distinct tiles with their slot_valid rows, the probes
+    read once, the (Q, P, C) scores written once."""
+    return (2.0 * Q * P * C * d + 2.0 * U * C * d,
+            4.0 * Q * d + U * C * (4.0 * d + 1) + 4.0 * Q * P
+            + 4.0 * Q * P * C)
+
+
+def pq_gather_work(Q: int, P: int, U: int, C: int, V: int, m: int,
+                   ksub: int) -> tuple:
+    """``pq_scan_gather``'s operations and bytes: m lookups and adds a
+    slot; the tables, the U distinct code tiles with their slot_valid
+    rows and codebook slots, the probes read once, the scores written
+    once."""
+    return (1.0 * Q * P * C * m,
+            4.0 * Q * V * m * ksub + U * C * (m + 1.0) + 4.0 * U
+            + 4.0 * Q * P + 4.0 * Q * P * C)
 
 
 #: run in a checkout (another tree's, or this one's) by ``--parent-tree``:
@@ -1649,23 +1777,28 @@ def tree_topk_times(tree: str, path: str) -> dict:
 
 
 def kernel_split(kern: dict, name: str) -> tuple:
-    """(the named kernel's device ms, with its merge; the other kernels'
-    ms by short name) from ``device_kernels``."""
-    own = sum(v for k, v in kern.items() if name in k or "topk_merge" in k)
-    rest = {re.sub(r"^void |<.*$|\(.*$", "", k)[:40]: v
-            for k, v in kern.items()
-            if not (name in k or "topk_merge" in k)}
-    return own, rest
+    """(the named kernel's device ms, with its merge or its gather's
+    inversion; those kernels' ms by short name; the other kernels' ms by
+    short name) from ``device_kernels``."""
+    def short(k):
+        return re.sub(r"^void |<.*$|\(.*$", "", k)[:40]
+
+    def mine(k):
+        return name in k or "topk_merge" in k
+    parts = {short(k): v for k, v in kern.items() if mine(k)}
+    rest = {short(k): v for k, v in kern.items() if not mine(k)}
+    return sum(parts.values()), parts, rest
 
 
 def time_topk_shapes(ops, x, parent_tree=None) -> None:
-    """Rows 2, 5, 7 and 8 on ``topk_inputs``: the index paths' batch (Q =
-    256), the serving batch (Q = 32), the cache scan, the ADC scan and the
-    rerank (quant k = 10, tiered k = 192): the time a call (CUDA events,
-    median of 20) and the device time (``device_kernels``, mean of 20):
-    all of it, the kernel's own (with its merge) and the wrapper's other
-    kernels listed apart; beside the fp32 bound and, for the centroid
-    kernel, the 3xTF32 bound.  With ``parent_tree`` (another checkout, a
+    """Rows 2 and 4-8 on ``topk_inputs``: the index paths' batch (Q =
+    256), the serving batch (Q = 32), the cache scan, the ADC scan, the
+    rerank (quant k = 10, tiered k = 192) and the two gathers (Q = 256
+    and 32): the time a call (CUDA events, median of 50) and the device
+    time (``device_kernels``, mean of 20): all of it, the kernel's own
+    (with its merge, or the gather's inversion, each listed) and the
+    wrapper's other kernels listed apart; beside the fp32 bound and, for
+    the centroid kernel, the 3xTF32 bound.  With ``parent_tree`` (another checkout, a
     parent commit) its kernels are timed on the same inputs in a fresh
     process before and after this tree's, and this tree's also in a fresh
     process (a call's host time differs between a fresh process and this
@@ -1685,8 +1818,11 @@ def time_topk_shapes(ops, x, parent_tree=None) -> None:
         os.remove(path)
 
     def dev(kern, name):
-        own, rest = kernel_split(kern, name.split()[0])
+        own, parts, rest = kernel_split(kern, name.split()[0])
         text = f"{sum(kern.values()):.4f} ms on the card ({own:.4f} kernel"
+        if len(parts) > 1:
+            text += " = " + " + ".join(f"{k} {v:.4f}"
+                                       for k, v in parts.items())
         if rest:
             text += "; wrapper " + ", ".join(f"{k} {v:.4f}"
                                               for k, v in rest.items())
@@ -1906,8 +2042,7 @@ def time_gathers(ops, ref, fdrv, qdrv, x, counts) -> list:
             q[:, :, None], alpha=-2),
         lambda a, b: require_close("posting_scan_gather, timed inputs", a,
                                    b),
-        4.0 * Q * P * C * d,
-        4.0 * Q * d + U * C * (4.0 * d + 1) + 4.0 * Q * P + 4.0 * Q * P * C))
+        *gather_work(Q, P, U, C, d)))
     st = qdrv.state
     luts, qpr, qvis = x["luts"], x["qprobe"], x["qvis"]
     V, m, ksub = luts.shape[1:]
@@ -1924,9 +2059,7 @@ def time_gathers(ops, ref, fdrv, qdrv, x, counts) -> list:
         lambda: ops.pq_scan_gather(luts, st.codes, st.pq_posting_slot,
                                    st.slot_valid, qvis, qpr),
         lambda: ref.pq_scan_gather(luts, st.codes, slot, qvalid, qpr),
-        None, exact, 1.0 * Q * P * C * m,
-        4.0 * luts.numel() + U * C * (m + 1.0) + 4.0 * M + 4.0 * Q * P
-        + 4.0 * Q * P * C))
+        None, exact, *pq_gather_work(Q, P, U, C, V, m, ksub)))
     return rows
 
 
@@ -2136,9 +2269,10 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent-tree", metavar="DIR",
                     help="another checkout (a parent commit, unpacked): "
-                         "its centroid_topk, posting_scan_topk, pq_scan_topk "
-                         "and rerank_topk are timed on this run's inputs in "
-                         "phase 4, before and after this tree's")
+                         "its centroid_topk, posting_scan_topk, pq_scan_topk, "
+                         "rerank_topk and the two gathers are timed on this "
+                         "run's inputs in phase 4, before and after this "
+                         "tree's")
     ap.add_argument("--parent-log", metavar="PATH",
                     help="the standard output of another tree's "
                          "chip_smoke.py run earlier on the same card (a "
@@ -2183,6 +2317,7 @@ def main() -> None:
         masked_score_checks(ops, ref, dev, args.seed)
         topk_checks(ops, ref, dev, args.seed)
         quant_checks(ops, ref, dev, args.seed)
+        gather_checks(ops, ref, dev, args.seed)
         attention_checks(ops, ref, dev, args.seed)
         kmeans_checks(ops, ref, dev, args.seed)
         torch.cuda.empty_cache()

@@ -32,6 +32,20 @@ __device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar,
                "r"(smem_addr(bar)), "r"(bytes) : "memory");
 }
 
+// Announce ``bytes`` more to come on the current phase without arriving
+// (the arrival comes later, from mbar_arrive).
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::
+               "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Arrive once with no bytes announced: the phase completes on the
+// arrivals alone (a stage whose copy was skipped keeps its phase count).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::
+               "r"(smem_addr(bar)) : "memory");
+}
+
 // Block until the phase of parity ``parity`` has completed (phases count
 // 0, 1, 2, ... from mbar_init; the n-th use of a barrier waits on n & 1).
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {

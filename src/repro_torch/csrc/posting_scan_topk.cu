@@ -29,19 +29,20 @@
 // the row's features from a start rotated by the row (rows a stride of
 // d floats apart then fall in distinct banks), as
 //     vn = fmaf(v, v, vn);  dot = fmaf(q, v, dot)     (in that order)
-// and s = vn - 2 * dot, so integer inputs are exact.  Each warp keeps its
-// own k-list in registers (lane j = j-th best); a unit's 32 candidates of a
-// warp are filtered against the list's k-th entry with one ballot before
-// any insert (topk_insert_lanes).  At the end one warp merges the block's
+// and s = vn - 2 * dot, so integer inputs are exact (row_score.cuh, which
+// posting_scan_gather.cu shares: the two give a row the same bits).  Each
+// warp keeps its own k-list in registers (lane j = j-th best); a unit's 32
+// candidates of a warp are filtered against the list's k-th entry with one
+// ballot before any insert (topk_insert_lanes).  At the end one warp merges the block's
 // lists.  Selection is by the (score, position) pair in lexicographic
 // order, so the tie order depends neither on which warp or block saw
 // which probe nor on the order they finish in.
 #include <algorithm>
 
 #include "bulk_copy.cuh"
+#include "row_score.cuh"
 #include "topk_common.cuh"
 
-#define PS_UNIT_FLOATS 12288   // 48 KB: the largest staged unit
 #define PS_MAX_THREADS 256
 
 template <bool BULK, bool V4>
@@ -107,10 +108,7 @@ posting_scan_topk_kernel(const float* __restrict__ q,
     if (!BULK) cp_async_commit();
   }
 
-  // the feature walk starts at (r * rot) mod the row's length: rot = 1
-  // where rows are an even number of 16-byte (4-byte) words apart, else 0
-  const int dw = V4 ? d / 4 : d;
-  const int rot = (dw % 2 == 0) ? 1 : 0;
+  const int dw = V4 ? d / 4 : d;             // words a row (row_score.cuh)
   float ls;
   int li;
   topk_empty(ls, li);
@@ -131,32 +129,8 @@ posting_scan_topk_kernel(const float* __restrict__ q,
       float sc = REPRO_BIG;
       if (has) {
         float vn = 0.f, dot = 0.f;
-        int j = (r * rot) % dw;
-        if (V4) {
-          const float4* row = reinterpret_cast<const float4*>(tile + r * d);
-          const float4* q4 = reinterpret_cast<const float4*>(qs);
-          for (int t = 0; t < dw; ++t) {
-            const float4 v = row[j];
-            const float4 w = q4[j];
-            vn = fmaf(v.x, v.x, vn);
-            vn = fmaf(v.y, v.y, vn);
-            vn = fmaf(v.z, v.z, vn);
-            vn = fmaf(v.w, v.w, vn);
-            dot = fmaf(w.x, v.x, dot);
-            dot = fmaf(w.y, v.y, dot);
-            dot = fmaf(w.z, v.z, dot);
-            dot = fmaf(w.w, v.w, dot);
-            j = j + 1 == dw ? 0 : j + 1;
-          }
-        } else {
-          const float* row = tile + r * d;
-          for (int t = 0; t < dw; ++t) {
-            const float v = row[j];
-            vn = fmaf(v, v, vn);
-            dot = fmaf(qs[j], v, dot);
-            j = j + 1 == dw ? 0 : j + 1;
-          }
-        }
+        row_walk<V4, true, true>(tile + r * d, qs, dw, row_start(r, dw), vn,
+                                 dot);
         if (p_ok && valid[(size_t)pid * C + r0 + r]) sc = vn - 2.f * dot;
       }
       topk_insert_lanes(ls, li, sc, p * C + r0 + r, has, k, lane);
@@ -222,7 +196,7 @@ extern "C" int posting_scan_topk(const float* q, const float* vec,
   if (k < 1 || k > 32 || group < 1) return (int)cudaErrorInvalidValue;
   if (Q <= 0) return (int)cudaGetLastError();
   const int S = (P + group - 1) / group;
-  const int R = std::min(C, std::max(1, PS_UNIT_FLOATS / d));  // rows a unit
+  const int R = unit_rows(C, d);                 // rows a unit
   const int threads = std::min(PS_MAX_THREADS, (R + 31) / 32 * 32);
   const int stage_floats = (R * d + 3) & ~3;
   const size_t smem = sizeof(float) * (((d + 3) & ~3) + 2 * stage_floats) +

@@ -20,21 +20,16 @@
 // the quant path's Q=256, P=32.  The kernel's own costs are the lookups
 // (random banks: about 3.5 shared-memory cycles a warp's lookup), the
 // copies' latency and the selection; the design answers those:
-// - Staging.  A block serves one query and a group of its probes.  One
-//   thread copies the query's tables (all V codebook slots, contiguous)
-//   into shared memory with one Hopper bulk copy on an mbarrier
-//   (bulk_copy.cuh).  Each warp streams its own probed tiles (tiles w,
-//   w + 8, ... of the chunk) through a ring of two stages: one bulk copy
-//   of the m*C code bytes and one of the C slot_valid bytes a tile, so its
-//   next tile is in flight while it scores one, and a warp waits on no
-//   other warp.  The first tiles are on their way before the block reads
-//   its probes' slots and masks (one record a probe, in shared memory)
-//   and before the wait on the tables.  Lane c scores slots c, c + 32,
-//   ...: m byte loads from the staged tile (consecutive lanes on
-//   consecutive bytes) and m table lookups.  Where the tables, tiles or
-//   slot_valid rows are not 16-byte aligned or m*C or C is no multiple of
-//   16 (the BULK = false instance), every thread copies table floats and
-//   lanes read code and slot_valid bytes from device memory.
+// - Staging and scoring (adc_scan.cuh, shared with pq_scan_gather.cu, so
+//   the two give the same scores).  A block serves one query and a group
+//   of its probes: the query's tables by one bulk copy, each warp's code
+//   tiles and slot_valid rows through its own two-stage ring of bulk
+//   copies, the first tiles on their way before the block reads its
+//   probes' slots and masks (one record a probe, in shared memory) and
+//   before the wait on the tables; lane c scores slots c, c + 32, ... .
+//   Where the tables, tiles or slot_valid rows are not 16-byte aligned or
+//   m*C or C is no multiple of 16, the BULK = false instance reads them
+//   from device memory.
 // - Selection, once.  Each slot's (score, position) goes to a shared
 //   buffer with the score's order key beside it (3,072 of them, 36 KB at
 //   P*C = 3,072), and block_select (topk_select.cuh) picks the k best by a
@@ -59,13 +54,13 @@
 #include <algorithm>
 #include <cooperative_groups.h>
 
-#include "bulk_copy.cuh"
+#include "adc_scan.cuh"
 #include "topk_select.cuh"
 
 namespace cg = cooperative_groups;
 
-#define PQ_WARPS SEL_WARPS
-#define PQ_STAGES 2          // code-tile stages a warp
+static_assert(SEL_THREADS == ADC_THREADS, "one block scans and selects");
+
 #define PQ_CHUNK_MAX 4096    // slots of a chunk (whole tiles)
 #define PQ_CHUNK_TILES 256   // tiles of a chunk at most
 #define PQ_MAX_SPLIT 8       // blocks a query: a portable cluster
@@ -75,7 +70,7 @@ struct PqLayout {
   int stage_bytes, valid_off;
 };
 
-// Shared-memory layout: mbarriers (1 + PQ_WARPS * PQ_STAGES), the tables,
+// Shared-memory layout: mbarriers (ADC_BARS), the tables,
 // the ring of code tiles with their slot_valid rows (BULK only), the
 // block's probe ids, the chunk's probe records, the pair buffer and its
 // keys, the k selected and their composites, a split's S sorted lists
@@ -83,8 +78,7 @@ struct PqLayout {
 static PqLayout pq_layout(bool bulk, int lut_n, int m, int C, int k,
                           int chunk_tiles, int group, int S) {
   PqLayout L;
-  L.valid_off = bulk ? ((m * C + 15) & ~15) : 0;
-  L.stage_bytes = bulk ? L.valid_off + ((C + 15) & ~15) : 0;
+  adc_stage_bytes(bulk, m, C, L.valid_off, L.stage_bytes);
   const bool multi = chunk_tiles < group;
   const int ucap = std::max((multi ? k : 0) + chunk_tiles * C,
                             S > 1 ? k : 0);
@@ -94,9 +88,9 @@ static PqLayout pq_layout(bool bulk, int lut_n, int m, int C, int k,
     o += (bytes + 15) & ~(size_t)15;
     return at;
   };
-  take(8 * (1 + PQ_WARPS * PQ_STAGES));
+  take(8 * ADC_BARS);
   L.lut = take((size_t)lut_n * 4);
-  L.ring = take((size_t)PQ_WARPS * PQ_STAGES * L.stage_bytes);
+  L.ring = take((size_t)ADC_WARPS * ADC_STAGES * L.stage_bytes);
   L.praw = take((size_t)group * 4);
   L.info = take((size_t)chunk_tiles * 16);
   L.u = take((size_t)ucap * 8);
@@ -122,9 +116,9 @@ pq_scan_topk_kernel(const float* __restrict__ luts,
                     int chunk_tiles, PqLayout lay,
                     float* __restrict__ out_s, int* __restrict__ out_i) {
   extern __shared__ __align__(16) unsigned char smem[];
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // [0]: tables
+  const AdcRing ring{smem + lay.ring, reinterpret_cast<uint64_t*>(smem),
+                     lay.stage_bytes, lay.valid_off};
   float* lut = reinterpret_cast<float*>(smem + lay.lut);
-  uint8_t* ring = smem + lay.ring;
   int* praw = reinterpret_cast<int*>(smem + lay.praw);     // the group's probes
   int4* info = reinterpret_cast<int4*>(smem + lay.info);  // a chunk's probes
   float2* u = reinterpret_cast<float2*>(smem + lay.u);
@@ -143,34 +137,11 @@ pq_scan_topk_kernel(const float* __restrict__ luts,
   const int pb = blockIdx.y * group;
   const int pe = min(P, pb + group);
   const int lut_n = V * m * ksub;
-  const int mc = m * C;
   const int* prow = probe + (size_t)qq * P;
-  const float* lq = luts + (size_t)qq * lut_n;
-  auto stage = [&](int g) {
-    return ring + (size_t)(warp * PQ_STAGES + g % PQ_STAGES) * lay.stage_bytes;
-  };
-  // lane 0: tile t of the chunk (posting pid) into the stage of use g
-  auto issue = [&](int g, int pid) {
-    uint64_t* bar = &bars[1 + warp * PQ_STAGES + g % PQ_STAGES];
-    uint8_t* dst = stage(g);
-    mbar_arrive_expect(bar, (uint32_t)(mc + C));
-    bulk_copy_g2s(dst, codes + (size_t)pid * mc, (uint32_t)mc, bar);
-    bulk_copy_g2s(dst + lay.valid_off, slot_valid + (size_t)pid * C,
-                  (uint32_t)C, bar);
-  };
 
   if (S > 1)                 // paired with the wait before the first store
     asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-  if (BULK) {
-    if (tid == 0) {
-      for (int b = 0; b < 1 + PQ_WARPS * PQ_STAGES; ++b) mbar_init(&bars[b], 1);
-      mbar_fence_init();
-      mbar_arrive_expect(&bars[0], (uint32_t)lut_n * 4u);
-      bulk_copy_g2s(lut, lq, (uint32_t)lut_n * 4u, &bars[0]);
-    }
-  } else {
-    for (int e = tid; e < lut_n; e += SEL_THREADS) lut[e] = lq[e];
-  }
+  adc_start<BULK>(ring, lut, luts + (size_t)qq * lut_n, lut_n);
   for (int t = tid; t < pe - pb; t += SEL_THREADS) praw[t] = prow[pb + t];
   __syncthreads();
 
@@ -179,53 +150,28 @@ pq_scan_topk_kernel(const float* __restrict__ luts,
   for (int c0 = pb; c0 < pe; c0 += chunk_tiles) {
     const int nt = min(pe, c0 + chunk_tiles) - c0;
     if (BULK && lane == 0)                   // the first tiles on their way
-      for (int j = 0; j < PQ_STAGES && warp + j * PQ_WARPS < nt; ++j)
-        issue(g + j, min(max(praw[c0 + warp + j * PQ_WARPS - pb], 0), M - 1));
+      adc_prime(ring, warp, g, nt, codes, slot_valid, M, m, C,
+                [&](int t) { return praw[c0 + t - pb]; });
     // each probe's posting, table offset and mask, read once
     for (int t = tid; t < nt; t += SEL_THREADS) {
       const int p = c0 + t;
-      const int pid = min(max(praw[p - pb], 0), M - 1);
-      const bool ok = vis[pid] && (qp_ok == nullptr ||
-                                   qp_ok[(size_t)qq * P + p] != 0);
-      info[t] = make_int4(pid, min(max(slot[pid], 0), V - 1) * m * ksub,
-                          ok, 0);
+      info[t] = adc_record(praw[p - pb], M, slot, V, m, ksub, vis,
+                           qp_ok == nullptr || qp_ok[(size_t)qq * P + p] != 0);
     }
     for (int i = tid; i < nrun; i += SEL_THREADS) {
       u[i] = sel[i];
       uk[i] = (uint32_t)(rk[i] >> 32);
     }
     __syncthreads();
-    if (BULK) mbar_wait(&bars[0], 0);
-    for (int t = warp; t < nt; t += PQ_WARPS, ++g) {    // warp-uniform
-      const int4 in = info[t];
-      const float* L = lut + in.y;
-      const uint8_t* cd;
-      const uint8_t* ok;
-      if (BULK) {
-        mbar_wait(&bars[1 + warp * PQ_STAGES + g % PQ_STAGES],
-                  (uint32_t)(g / PQ_STAGES) & 1u);
-        cd = stage(g);
-        ok = cd + lay.valid_off;
-      } else {
-        cd = codes + (size_t)in.x * mc;
-        ok = slot_valid + (size_t)in.x * C;
-      }
-      const int pos0 = (c0 + t) * C;
-      float2* dst = u + nrun + t * C;
-      uint32_t* dkey = uk + nrun + t * C;
-      for (int c = lane; c < C; c += 32) {
-        float acc = L[cd[c]];
-        for (int j = 1; j < m; ++j) acc += L[j * ksub + cd[j * C + c]];
-        const float sc = in.z && ok[c] ? acc : REPRO_BIG;
-        dst[c] = sel_pair(sc, pos0 + c);
-        dkey[c] = order_key(sc);
-      }
-      if (BULK) {
-        __syncwarp();                  // every lane is done with the stage
-        if (lane == 0 && t + PQ_STAGES * PQ_WARPS < nt)
-          issue(g + PQ_STAGES, info[t + PQ_STAGES * PQ_WARPS].x);
-      }
-    }
+    if (BULK) mbar_wait(&ring.bars[0], 0);
+    adc_scan_chunk<BULK, false>(
+        ring, lut, info, nt, g, codes, slot_valid, m, C, ksub,
+        [&](int t, int c, float sc) {
+          const int at = nrun + t * C + c;
+          u[at] = sel_pair(sc, (c0 + t) * C + c);
+          uk[at] = order_key(sc);
+        },
+        [](int, int, float4) {});
     __syncthreads();
     const int n = nrun + nt * C;
     const int kk = min(k, n);
@@ -348,9 +294,7 @@ extern "C" int pq_scan_topk(const float* luts, const uint8_t* codes,
   if (Q <= 0) return (int)cudaGetLastError();
   const int lut_n = V * m * ksub;
   const int G = std::min(P, group);
-  bool bulk = (uintptr_t)luts % 16 == 0 && lut_n % 4 == 0 &&
-              (uintptr_t)codes % 16 == 0 && (m * C) % 16 == 0 &&
-              (uintptr_t)slot_valid % 16 == 0 && C % 16 == 0;
+  bool bulk = adc_bulk_ok(luts, lut_n, codes, m, C, slot_valid);
   int tiles = std::max(1, std::min({G, PQ_CHUNK_MAX / C, PQ_CHUNK_TILES}));
   PqLayout lay = pq_layout(bulk, lut_n, m, C, k, tiles, G, S);
   const size_t smem_max = 232448;

@@ -87,13 +87,14 @@ def posting_scan_gather(q: torch.Tensor, vectors: torch.Tensor,
     """Unfused phase 2: q (Q, d); vectors (M, C, d); slot_valid (M, C)
     bool; vis (M,) bool; probe (Q, P) with entries in [0, M).  Returns
     (Q, P, C) scores of every slot of each probed tile; invalid slots and
-    invisible postings -> BIG."""
-    valid = slot_valid & vis[:, None]
+    invisible postings -> BIG.  On the card the kernel applies both masks
+    itself: no (M, C) mask is built per call."""
     if _on_card(q):
         return _ps.posting_scan_gather(_f32(q), _f32(vectors),
-                                       valid.contiguous(),
-                                       probe.to(torch.int32).contiguous())
-    return ref.posting_scan_gather(q, vectors, valid, probe)
+                                       slot_valid.contiguous(),
+                                       vis.contiguous(), _i32(probe))
+    return ref.posting_scan_gather(q, vectors, slot_valid & vis[:, None],
+                                   probe)
 
 
 def posting_scan_topk(q: torch.Tensor, vectors: torch.Tensor,
@@ -147,15 +148,15 @@ def pq_scan_gather(luts: torch.Tensor, codes: torch.Tensor,
     (M, m, C) uint8; posting_slot (M,), clamped to [0, V); slot_valid
     (M, C) bool; vis (M,) bool; probe (Q, P) with entries in [0, M).
     Returns (Q, P, C) ADC scores; invalid slots and invisible postings
-    -> BIG."""
-    V = luts.shape[1]
-    slot = posting_slot.to(torch.int32).clamp(0, V - 1)
-    valid = slot_valid & vis[:, None]
+    -> BIG.  On the card the kernel clamps the slot and applies the masks
+    itself: no (M, C) mask is built per call."""
     if _on_card(luts):
         return _pq.pq_scan_gather(_f32(luts), codes.contiguous(),
-                                  slot.contiguous(), valid.contiguous(),
-                                  probe.to(torch.int32).contiguous())
-    return ref.pq_scan_gather(luts, codes, slot, valid, probe)
+                                  _i32(posting_slot), slot_valid.contiguous(),
+                                  vis.contiguous(), _i32(probe))
+    slot = posting_slot.to(torch.int32).clamp(0, luts.shape[1] - 1)
+    return ref.pq_scan_gather(luts, codes, slot, slot_valid & vis[:, None],
+                              probe)
 
 
 def pq_scan_topk(luts: torch.Tensor, codes: torch.Tensor,

@@ -8,8 +8,9 @@ and the fused probe scan + top-k.
   tiles viewed as (G*C, d), the same function as ``centroid_score``.
 * ``posting_scan_gather`` replaces ``repro/kernels/posting_scan.py:
   posting_scan_gather``: every slot of each query's probed tiles, the
-  unfused (Q, P, C) scores that the fused search is held against, source
-  ``csrc/posting_scan_gather.cu``.
+  unfused (Q, P, C) scores that the fused search is held against, tile by
+  tile (the (query, probe) pairs grouped by posting, so each distinct
+  probed tile is read once), source ``csrc/posting_scan_gather.cu``.
 * ``posting_scan_topk`` replaces ``repro/kernels/posting_scan.py:
   posting_scan_topk``: search phase 2, a running top-k over the probed
   tiles (staged by Hopper's bulk copy; at a small batch each query's
@@ -43,6 +44,7 @@ REPLACES_TOPK = "src/repro/kernels/posting_scan.py:208"
 WARP_K = 32           # warp path: one list entry per lane
 MAX_K = 1024          # block-wide path (csrc/topk_common.cuh)
 MAX_D = 16384         # the warp path's q row and two one-row stages
+MAX_D_GATHER = 12288  # csrc/row_score.cuh: PS_UNIT_FLOATS, one row a unit
 _TARGET_BLOCKS = 264  # two blocks per SM of an H100
 launches = 0
 launches_gather = 0
@@ -64,11 +66,31 @@ def posting_scan(q: torch.Tensor, tiles: torch.Tensor,
     return out
 
 
+_gather = None
+
+
+def _lib_gather():
+    global _gather
+    if _gather is None:             # argtypes once: every call pays for it
+        lib = _nvcc.load("posting_scan_gather")
+        fn = lib.posting_scan_gather
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p] * 3
+        fn.restype = ctypes.c_int
+        ints = lib.posting_scan_gather_scratch
+        ints.argtypes = [ctypes.c_longlong]
+        ints.restype = ctypes.c_longlong
+        _gather = fn, ints
+    return _gather
+
+
 def posting_scan_gather(q: torch.Tensor, vectors: torch.Tensor,
-                        valid: torch.Tensor, probe: torch.Tensor):
-    """Kernel wrapper: q (Q, d) fp32, vectors (M, C, d) fp32, valid (M, C)
-    bool, probe (Q, P) int32 with entries in [0, M) -> (Q, P, C) fp32
-    scores, BIG where ``valid`` is False."""
+                        slot_valid: torch.Tensor, vis: torch.Tensor,
+                        probe: torch.Tensor):
+    """Kernel wrapper: q (Q, d) fp32, vectors (M, C, d) fp32, slot_valid
+    (M, C) and vis (M,) bool, probe (Q, P) int32 with entries in [0, M)
+    -> (Q, P, C) fp32 scores, BIG where ``slot_valid`` or the posting's
+    ``vis`` is False.  Needs d <= 12,288 and 5*Q*P + 4 < 2^31."""
     global launches_gather
     Q, d = q.shape
     M, C, _ = vectors.shape
@@ -76,21 +98,25 @@ def posting_scan_gather(q: torch.Tensor, vectors: torch.Tensor,
     dev = q.device
     _nvcc.require(q, "q", torch.float32, (Q, d))
     _nvcc.require(vectors, "vectors", torch.float32, (M, C, d), dev)
-    _nvcc.require(valid, "valid", torch.bool, (M, C), dev)
+    _nvcc.require(slot_valid, "slot_valid", torch.bool, (M, C), dev)
+    _nvcc.require(vis, "vis", torch.bool, (M,), dev)
     _nvcc.require(probe, "probe", torch.int32, (Q, P), dev)
-    if 4 * d > 48 * 1024:
-        raise ValueError(f"posting_scan_gather: d={d} exceeds the query "
-                         "row's 48 KB of shared memory")
+    if d > MAX_D_GATHER:
+        raise ValueError(f"posting_scan_gather: d={d} exceeds "
+                         f"{MAX_D_GATHER}, a row of one staged unit")
+    if 5 * Q * P + 4 >= 2 ** 31:
+        raise ValueError("posting_scan_gather: Q*P exceeds its int32 "
+                         "scratch")
     out = torch.empty((Q, P, C), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    fn = _nvcc.load("posting_scan_gather").posting_scan_gather
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    err = fn(q.data_ptr(), vectors.data_ptr(), valid.data_ptr(),
-             probe.data_ptr(), Q, M, C, d, P, out.data_ptr(),
-             _nvcc.stream_ptr(dev))
+    if M == 0:
+        raise ValueError("posting_scan_gather: probes into an empty pool")
+    fn, scratch_ints = _lib_gather()
+    scratch = torch.empty(scratch_ints(Q * P), dtype=torch.int32, device=dev)
+    err = fn(q.data_ptr(), vectors.data_ptr(), slot_valid.data_ptr(),
+             vis.data_ptr(), probe.data_ptr(), Q, M, C, d, P,
+             scratch.data_ptr(), out.data_ptr(), _nvcc.stream_ptr(dev))
     _nvcc.check(err, "posting_scan_gather")
     launches_gather += 1
     return out

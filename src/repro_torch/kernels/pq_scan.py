@@ -10,8 +10,10 @@
   Source ``csrc/pq_scan_topk.cu``.
 * ``pq_scan_gather`` replaces ``repro/kernels/pq_scan.py:
   pq_scan_gather``: the same scores unselected, (Q, P, C), the unfused
-  ADC scan that the fused one is held against.  Source
-  ``csrc/pq_scan_gather.cu``.
+  ADC scan that the fused one is held against (the same staged scan,
+  ``csrc/adc_scan.cuh``, with a store for an epilogue; at a small batch
+  each query's probes split across blocks, :func:`gather_split`).
+  Source ``csrc/pq_scan_gather.cu``.
 
 Each source's header note says what bounds it on the H100 and how the
 design answers.  The plain versions are
@@ -66,8 +68,9 @@ def _lut_bytes(V: int, m: int, ksub: int) -> int:
 #: and P <= 1024 (beside them, at those: 10 KB of pairs, 16 KB of the k
 #: selected and their composites, 4 KB of probe ids)
 LUT_MAX = SMEM_MAX - topk_smem(0, 0, 0, 256, MAX_K, 1024)
-#: lookup-table bytes ``pq_scan_gather`` takes: its block holds only them
-LUT_MAX_GATHER = SMEM_MAX
+#: lookup-table bytes ``pq_scan_gather`` takes: beside them its block holds
+#: only mbarriers (144 bytes) and 256 probe records (csrc/pq_scan_gather.cu)
+LUT_MAX_GATHER = SMEM_MAX - 144 - 16 * 256
 
 
 def _check_luts(name: str, V: int, m: int, ksub: int, limit: int) -> None:
@@ -86,7 +89,19 @@ def split_probes(Q: int, P: int) -> tuple:
     return group, -(-P // group)
 
 
+def gather_split(Q: int, P: int) -> tuple:
+    """(group, S) for ``pq_scan_gather``: each query's P probes go in S
+    groups of ``group`` consecutive probes (the last may be shorter), one
+    block each, so that about two blocks per SM work at a small batch
+    (nothing is merged, so S is not bound by a cluster); S = 1 from 133
+    queries on."""
+    S = max(1, min(P, 2 * _SMS // max(Q, 1), 65535))
+    group = -(-P // S)
+    return group, -(-P // group)
+
+
 _fn = None
+_gather_fn = None
 
 
 def _lib():
@@ -150,13 +165,14 @@ def pq_scan_topk(luts: torch.Tensor, codes: torch.Tensor,
 
 
 def pq_scan_gather(luts: torch.Tensor, codes: torch.Tensor,
-                   slot: torch.Tensor, valid: torch.Tensor,
-                   probe: torch.Tensor):
+                   slot: torch.Tensor, slot_valid: torch.Tensor,
+                   vis: torch.Tensor, probe: torch.Tensor):
     """Kernel wrapper: luts (Q, V, m, ksub) fp32, codes (M, m, C) uint8,
-    slot (M,) int32 in [0, V), valid (M, C) bool, probe (Q, P) int32 with
-    entries in [0, M) -> (Q, P, C) fp32 ADC scores, BIG where ``valid`` is
-    False."""
-    global launches_gather
+    slot (M,) int32 (clamped to [0, V) by the kernel), slot_valid (M, C)
+    and vis (M,) bool, probe (Q, P) int32 with entries in [0, M) -> (Q, P,
+    C) fp32 ADC scores, BIG where ``slot_valid`` or the posting's ``vis``
+    is False."""
+    global launches_gather, _gather_fn
     Q, V, m, ksub = luts.shape
     M, _, C = codes.shape
     P = probe.shape[1]
@@ -164,19 +180,26 @@ def pq_scan_gather(luts: torch.Tensor, codes: torch.Tensor,
     _nvcc.require(luts, "luts", torch.float32, (Q, V, m, ksub))
     _nvcc.require(codes, "codes", torch.uint8, (M, m, C), dev)
     _nvcc.require(slot, "slot", torch.int32, (M,), dev)
-    _nvcc.require(valid, "valid", torch.bool, (M, C), dev)
+    _nvcc.require(slot_valid, "slot_valid", torch.bool, (M, C), dev)
+    _nvcc.require(vis, "vis", torch.bool, (M,), dev)
     _nvcc.require(probe, "probe", torch.int32, (Q, P), dev)
     _check_luts("pq_scan_gather", V, m, ksub, LUT_MAX_GATHER)
     out = torch.empty((Q, P, C), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    fn = _nvcc.load("pq_scan_gather").pq_scan_gather
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    err = fn(luts.data_ptr(), codes.data_ptr(), slot.data_ptr(),
-             valid.data_ptr(), probe.data_ptr(), Q, M, C, V, m, ksub, P,
-             out.data_ptr(), _nvcc.stream_ptr(dev))
+    if M == 0:
+        raise ValueError("pq_scan_gather: probes into an empty pool")
+    if _gather_fn is None:          # argtypes once: every call pays for it
+        fn = _nvcc.load("pq_scan_gather").pq_scan_gather
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+            ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+        _gather_fn = fn
+    group, _ = gather_split(Q, P)
+    err = _gather_fn(luts.data_ptr(), codes.data_ptr(), slot.data_ptr(),
+                     slot_valid.data_ptr(), vis.data_ptr(), probe.data_ptr(),
+                     Q, M, C, V, m, ksub, P, group, out.data_ptr(),
+                     _nvcc.stream_ptr(dev))
     _nvcc.check(err, "pq_scan_gather")
     launches_gather += 1
     return out

@@ -17,8 +17,16 @@ oracle built on them.
   a stable top-k equal the port's ``search`` bit for bit, and
   ``pq_scan_gather`` on the search's own probes and tables, with a stable
   top-``rerank_k``, equals ``pq_scan_topk``.
+* The cases the card kernels' schedules turn on, held against JAX the
+  same way: every query probing one posting (one long run of pairs, cut
+  into chunks on the card), duplicated probes inside a query and across
+  queries, a tile past one 48 KB staging unit (C = 133, d = 300), m*C
+  and C no multiples of 16 (the ADC scan's unstaged instance) and
+  codebook slots at -1 and V.
 * On the card (``cuda``-marked, skipped here): each kernel against its
-  plain version, and its launch counted.
+  plain version at every case above, its launch counted, and the float
+  gather's scores at ``posting_scan_topk``'s picks equal to that kernel's
+  bit for bit (one row walk, ``csrc/row_score.cuh``, scores both).
 """
 import numpy as np
 import pytest
@@ -107,6 +115,103 @@ def test_pq_scan_gather_matches_jax(Q, V, m, ksub, M, C, P, kind, backend):
     assert torch.equal(s, torch.sort(got.reshape(Q, -1), 1).values)
 
 
+def _probes(rng, Q, M, P, how):
+    """(Q, P) int32 probe ids: ``random``; ``same``, every pair on one
+    posting; ``dup``, the last P // 2 of each row repeating its first and
+    query 1 repeating query 0."""
+    if how == "same":
+        return np.full((Q, P), M // 2, np.int32)
+    probe = rng.integers(0, M, (Q, P)).astype(np.int32)
+    if how == "dup":
+        probe[:, P - P // 2:] = probe[:, :P // 2]
+        probe[1] = probe[0]
+    return probe
+
+
+# (Q, M, C, P, d, kind, probes): one long run (Q*P pairs on one posting),
+# duplicated probes, a tile of four 48 KB staging units (C=133, d=300), a
+# pool of one posting (no sort pass on the card)
+PSG_EDGE = [(12, 6, 24, 3, 16, "int", "same"),
+            (6, 8, 24, 5, 16, "int", "dup"),
+            (3, 4, 133, 2, 300, "normal", "random"),
+            (4, 1, 24, 2, 16, "int", "random")]
+
+
+@pytest.mark.parametrize("Q,M,C,P,d,kind,how", PSG_EDGE)
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_posting_scan_gather_edges_match_jax(Q, M, C, P, d, kind, how,
+                                             backend):
+    rng = np.random.default_rng(Q * M * C + d + len(how))
+    q, vecs = _data(rng, kind, (Q, d)), _data(rng, kind, (M, C, d))
+    slot_valid = rng.random((M, C)) > 0.3
+    vis = np.arange(M) % 4 != 1
+    probe = _probes(rng, Q, M, P, how)
+    want = np.asarray(jops.posting_scan_gather(
+        jnp.asarray(q), jnp.asarray(vecs), jnp.asarray(slot_valid),
+        jnp.asarray(vis), jnp.asarray(probe), backend=backend))
+    got = ops.posting_scan_gather(_t(q), _t(vecs), _t(slot_valid), _t(vis),
+                                  _t(probe)).numpy()
+    if kind == "normal":
+        _close(got, want)
+    else:
+        np.testing.assert_array_equal(got, want)
+    if how != "random":        # a repeated probe's scores repeat exactly
+        h = P // 2 if how == "dup" else P - 1
+        np.testing.assert_array_equal(got[:, P - h:], got[:, :h])
+
+
+# (Q, V, m, ksub, M, C, P, kind, probes): one long run, duplicated probes
+# with C = 20 (no multiple of 16), m*C = 108 (none either); every case has
+# codebook slots -1 .. V (clamped)
+PQG_EDGE = [(12, 2, 4, 16, 6, 32, 3, "int", "same"),
+            (6, 3, 4, 16, 8, 20, 5, "normal", "dup"),
+            (4, 2, 3, 32, 7, 36, 3, "int", "random")]
+
+
+@pytest.mark.parametrize("Q,V,m,ksub,M,C,P,kind,how", PQG_EDGE)
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_pq_scan_gather_edges_match_jax(Q, V, m, ksub, M, C, P, kind, how,
+                                        backend):
+    rng = np.random.default_rng(Q * V * m + ksub + C + len(how))
+    luts = _data(rng, kind, (Q, V, m, ksub))
+    codes = rng.integers(0, ksub, (M, m, C)).astype(np.uint8)
+    slot = (np.arange(M) % (V + 2) - 1).astype(np.int32)      # -1 .. V
+    slot_valid = rng.random((M, C)) > 0.3
+    vis = np.arange(M) % 4 != 1
+    probe = _probes(rng, Q, M, P, how)
+    want = np.asarray(jops.pq_scan_gather(
+        jnp.asarray(luts), jnp.asarray(codes), jnp.asarray(slot),
+        jnp.asarray(slot_valid), jnp.asarray(vis), jnp.asarray(probe),
+        backend=backend))
+    got = ops.pq_scan_gather(_t(luts), _t(codes), _t(slot), _t(slot_valid),
+                             _t(vis), _t(probe)).numpy()
+    if kind == "normal":
+        _close(got, want)
+    else:
+        np.testing.assert_array_equal(got, want)
+    # the plain version sums in the kernels' order: exact against itself
+    # on the clamped slots
+    cslot = _t(np.clip(slot, 0, V - 1))
+    plain = ref.pq_scan_gather(_t(luts), _t(codes), cslot,
+                               _t(slot_valid & vis[:, None]), _t(probe))
+    assert torch.equal(torch.from_numpy(got), plain)
+
+
+@pytest.mark.parametrize("Q,P", [(1, 32), (31, 32), (32, 32), (33, 5),
+                                 (132, 32), (133, 32), (256, 32), (7, 1)])
+def test_gather_split_covers_each_probe_once(Q, P):
+    """The ADC gather's probe groups tile [0, P) with S blocks a query: S
+    = 1 from 133 queries on, about two blocks an SM of an H100 below."""
+    from repro_torch.kernels import pq_scan
+    group, S = pq_scan.gather_split(Q, P)
+    assert group >= 1 and 1 <= S <= 65535
+    assert (S - 1) * group < P <= S * group
+    if Q >= 133:
+        assert S == 1
+    else:
+        assert Q * S <= 2 * 132 and (S == P or Q * (S + 1) > 2 * 132)
+
+
 def test_gathers_mask_every_slot_when_nothing_is_visible():
     rng = np.random.default_rng(0)
     q, vecs = _data(rng, "int", (3, 16)), _data(rng, "int", (5, 24, 16))
@@ -190,6 +295,92 @@ def test_unfused_adc_oracle_equals_pq_scan_topk():
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
+
+def _card_psg(dev, Q, M, C, P, d, kind, how, off=0):
+    """A float gather case on the card: inputs (``off`` floats past an
+    aligned start for q and the vectors), the kernel's scores and the
+    plain version's."""
+    rng = np.random.default_rng(Q * M * C + d + len(how) + off)
+
+    def t(a):
+        flat = torch.zeros(a.size + off, dtype=torch.float32, device=dev)
+        flat[off:] = torch.as_tensor(a.ravel(), device=dev)
+        return flat[off:].view(a.shape)
+    q, vecs = t(_data(rng, kind, (Q, d))), t(_data(rng, kind, (M, C, d)))
+    slot_valid = torch.as_tensor(rng.random((M, C)) < 0.7, device=dev)
+    vis = torch.as_tensor(np.arange(M) % 4 != 1, device=dev)
+    probe = torch.as_tensor(_probes(rng, Q, M, P, how), device=dev)
+    got = _counted("posting_scan_gather", lambda: ops.posting_scan_gather(
+        q, vecs, slot_valid, vis, probe))
+    want = ref.posting_scan_gather(q, vecs, slot_valid & vis[:, None], probe)
+    return got, want
+
+
+#: every CPU case of both float gather lists, as (Q, M, C, P, d, kind, how)
+PSG_ALL = [c + ("random",) for c in PSG_CASES] + PSG_EDGE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("off", [0, 1])
+@pytest.mark.parametrize("Q,M,C,P,d,kind,how", PSG_ALL)
+def test_card_posting_scan_gather_cases(cuda_dev, Q, M, C, P, d, kind, how,
+                                        off):
+    got, want = _card_psg(cuda_dev, Q, M, C, P, d, kind, how, off)
+    if kind == "normal":
+        _close(got.cpu().numpy(), want.cpu().numpy())
+    else:
+        assert torch.equal(got, want)
+
+
+#: every CPU case of both ADC gather lists, as (Q, V, m, ksub, M, C, P,
+#: kind, how)
+PQG_ALL = [c[:7] + (c[7], "random") for c in PQG_CASES] + PQG_EDGE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,V,m,ksub,M,C,P,kind,how", PQG_ALL)
+def test_card_pq_scan_gather_cases(cuda_dev, Q, V, m, ksub, M, C, P, kind,
+                                   how):
+    """Exact on any tables: the kernel sums in the plain version's order."""
+    rng = np.random.default_rng(Q * V * m + ksub + C + len(how))
+    t = lambda a: torch.as_tensor(a, device=cuda_dev)          # noqa: E731
+    luts = t(_data(rng, kind, (Q, V, m, ksub)))
+    codes = t(rng.integers(0, ksub, (M, m, C)).astype(np.uint8))
+    slot = t((np.arange(M) % (V + 2) - 1).astype(np.int32))
+    slot_valid = t(rng.random((M, C)) < 0.7)
+    vis = t(np.arange(M) % 4 != 1)
+    probe = t(_probes(rng, Q, M, P, how))
+    got = _counted("pq_scan_gather", lambda: ops.pq_scan_gather(
+        luts, codes, slot, slot_valid, vis, probe))
+    want = ref.pq_scan_gather(luts, codes, slot.clamp(0, V - 1),
+                              slot_valid & vis[:, None], probe)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [1, 37, 256])
+def test_card_gather_scores_equal_posting_scan_topk(cuda_dev, Q):
+    """On normal data the float gather's score at each of
+    ``posting_scan_topk``'s picks is that kernel's score, bit for bit:
+    both walk a row with ``row_walk``, in the same staging units."""
+    rng = np.random.default_rng(Q)
+    M, C, P, d = 300, 96, 32, 128
+    t = lambda a: torch.as_tensor(a, device=cuda_dev)          # noqa: E731
+    q, vecs = t(_data(rng, "normal", (Q, d))), t(_data(rng, "normal",
+                                                       (M, C, d)))
+    slot_valid = t(rng.random((M, C)) < 0.8)
+    vis = t(rng.random(M) < 0.9)
+    probe = t(np.stack([rng.permutation(M)[:P] for _ in range(Q)])
+              .astype(np.int32))                # distinct within a query
+    gath = ops.posting_scan_gather(q, vecs, slot_valid, vis, probe)
+    for k in (1, 10, 32):
+        s, cand = ops.posting_scan_topk(q, vecs, slot_valid, vis, probe, k=k)
+        p = (probe.long()[:, :, None] == (cand.long() // C)[:, None, :])
+        p = p.int().argmax(1)                               # (Q, k)
+        at = gath[torch.arange(Q, device=cuda_dev)[:, None], p,
+                  cand.long() % C]
+        assert torch.equal(at, s)
+
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("C,d,kind", [(96, 128, "int"), (33, 100, "int"),
