@@ -87,6 +87,27 @@ Phases, in order (any failure exits non-zero before the last line):
    same model with the plain attention (fp32 summation order through 22
    layers), and the Prometheus exposition parses and holds the request
    latency histogram.
+   (g) the front door.  The float path once more with ``fused_tick=True``
+   (device-side candidate selection) and ``Obs(trace_path=...)``, on
+   3a's seed: 3a's gates, a final live map (id -> vector bytes) equal to
+   3a's, the float path's kernels launched, and the trace audit (one
+   JSONL line per event; insert minus delete events equal to the live
+   count); then one more identical step on both drivers, its tick
+   profiled fused against unfused (wall, device busy share).  Every
+   engine of ``list_engines()`` (ubis, spfresh, spann, freshdiskann)
+   through one kwargs dict at d = 128 (``max_postings`` 65,504,
+   ``capacity`` 96, ``nprobe`` 32; the graph's registry defaults), over
+   a ``DriftingVectorStream`` of 400 clusters: the cluster engines 20k
+   seed vectors and 10 batches of 20k inserts and 10k deletes,
+   freshdiskann (host-Python inserts) 2,048 and 8 batches of 2,048 and
+   1,024; each batch ticks until quiescent (at most 64 ticks), then a
+   256-query search at k=10 and ``exact``.
+   Gates: the contract harness's recall floors, ``live_count()`` =
+   inserted - deleted (spann: its build, every update refused), deleted
+   ids never returned, the cluster engines' kernels launched; printed:
+   seconds by phase, recall and ``memory_bytes``.  Then the sequential
+   single-posting ops against one ``background_round`` on a marked
+   state at d = 128: the same live map, the invariants on both.
 4. Each kernel timed (CUDA events, median of 20 runs after warm-up) on
    its path's own inputs, beside its plain version, its bound and, where
    one PyTorch call computes the same product, that call (``addmm`` /
@@ -967,14 +988,15 @@ def main_path(dev, *, n: int, dim: int, max_postings: int,
               queries: int, chunk: int, seed: int, round_size: int,
               bg_ops: int, quant: bool = False, pq_retrain_every: int = 32,
               tier_hot_max: int = 0, data=None, gate: bool = True,
-              log=say):
+              index_kw=None, log=say):
     """Drive ``make_index("ubis", ...)`` through load + streaming steps,
     on the float plane or (``quant``) the quant plane, with the cold tier
     when ``tier_hot_max`` > 0 (``tier_async``, 256 moves per tick; at
     least ``TIER_SHARE`` of the live postings spilled after the load);
     ``data``: keyword arguments of ``Stream``; ``gate=False`` reports
-    recall@10 without failing below 0.9.  Returns (driver, last queries,
-    per-phase seconds, recalls, stream)."""
+    recall@10 without failing below 0.9; ``index_kw``: more keyword
+    arguments of ``make_index`` (``fused_tick``, ``obs``).  Returns
+    (driver, last queries, per-phase seconds, recalls, stream)."""
     from repro_torch.api import make_index
     from repro_torch.core import metrics
     from repro_torch.core.invariants import check_invariants, check_residency
@@ -1003,7 +1025,7 @@ def main_path(dev, *, n: int, dim: int, max_postings: int,
                      drain_per_tick=round_size,
                      pq_retrain_every=pq_retrain_every,
                      **(dict(tier_async=True, tier_moves_per_tick=256)
-                        if tier else {}))
+                        if tier else {}), **(index_kw or {}))
     sync()
     secs["build"] = time.perf_counter() - t
     if tier:
@@ -1374,6 +1396,353 @@ def serve_path(dev, ops, ref, *, seed: int, reduced: bool = False,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return server, counts, toks, secs
+
+
+# ---------------------------------------------------------------------------
+# phase 3g: the front door
+# ---------------------------------------------------------------------------
+
+#: phase 3g's engine stream, per engine: (seed vectors, batches, inserts
+#: and deletes a batch).  The graph baseline's insert path is host Python
+#: (RobustPrune and its back-edges, about 4 ms an insert on the card's
+#: host at a few thousand nodes), so its stream is a tenth as deep.
+ENGINE_DEPTH = {"ubis": (20000, 10, 20000, 10000),
+                "spfresh": (20000, 10, 20000, 10000),
+                "spann": (20000, 10, 20000, 10000),
+                "freshdiskann": (2048, 8, 2048, 1024)}
+#: the stream's clusters: with nprobe = 32 the probes must cover a
+#: query's neighbours (figengines' 32 clusters would put a few thousand
+#: live vectors, tens of postings, in each)
+ENGINE_CLUSTERS = 400
+#: recall@10 floors against each engine's own exact(), those of the
+#: contract harness (tests/contract_harness.py)
+RECALL_FLOOR = {"ubis": 0.9, "spfresh": 0.9, "freshdiskann": 0.15,
+                "spann": 0.8}
+#: phase 3g's index configuration: the float path's
+FRONT_CFG = dict(dim=128, max_postings=65504, capacity=96, l_min=10,
+                 l_max=80, balance_factor=0.15, nprobe=32,
+                 cache_capacity=4096, max_ids=1 << 21)
+#: the kernels a cluster engine's stream must launch (freshdiskann's beam
+#: search is plain tensor code, no kernel of the port)
+ENGINE_KERNELS = ("centroid_score", "centroid_topk", "posting_scan",
+                  "posting_scan_topk")
+
+
+def sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def live_pairs(state) -> tuple:
+    """(ids ascending, their vectors) over every live slot (visible
+    postings and the cache), on the device: the live map id -> vector
+    bytes.  Fails on a duplicated id."""
+    vis = state.allocated & ((state.rec_meta & 3) != 3)
+    slot = state.slot_valid & vis[:, None]
+    ids = torch.cat([state.ids[slot], state.cache_ids[state.cache_valid]])
+    vecs = torch.cat([state.vectors[slot],
+                      state.cache_vecs[state.cache_valid]])
+    order = torch.argsort(ids.long(), stable=True)
+    ids, vecs = ids[order], vecs[order]
+    if bool((ids[1:] == ids[:-1]).any()):
+        fail("a live id is held twice")
+    return ids, vecs
+
+
+def same_live_map(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(live_pairs(a),
+                                                  live_pairs(b)))
+
+
+def window(fn) -> tuple:
+    """Run ``fn`` under ``torch.profiler``: (wall seconds, device busy
+    seconds, [(kernel, device ms, calls)] by time).  Device-side events
+    only: an aten op's own entry repeats the time of its kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(ev):
+        return getattr(ev, "self_device_time_total",
+                       getattr(ev, "self_cuda_time_total", 0.0))
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        sync()
+        wall = time.perf_counter() - t
+    rows = sorted(((ev.key, dev_us(ev) / 1e3, ev.count)
+                   for ev in prof.key_averages()
+                   if str(ev.device_type).endswith("CUDA")
+                   and dev_us(ev) > 0), key=lambda r: -r[1])
+    return wall, sum(r[1] for r in rows) / 1e3, rows, prof
+
+
+def trace_audit(path: str, obs, live: int, log=say) -> None:
+    """The JSONL sink holds one line per emitted event, its newest lines
+    are the ring's events, and its insert/delete events sum to the live
+    count (the index started empty)."""
+    obs.tracer.close()
+    with open(path) as f:
+        evs = [json.loads(line) for line in f]
+    ring = obs.events()
+    if [e["seq"] for e in evs] != list(range(len(evs))) or (
+            evs[-len(ring):] != ring or ring[-1]["seq"] + 1 != len(evs)):
+        fail(f"the JSONL trace holds {len(evs)} lines, not one per event")
+    net = (sum(e["accepted"] + e["cached"] for e in evs
+               if e["kind"] == "insert")
+           - sum(e["deleted"] for e in evs if e["kind"] == "delete"))
+    kinds = {}
+    for e in evs:
+        kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+    log(f"  trace audit: {len(evs)} JSONL lines ({json.dumps(kinds)}), "
+        f"{len(ring)} in the ring (capacity {obs.tracer.capacity}); "
+        f"insert - delete events {net}, live {live}")
+    if net != live:
+        fail(f"the trace's insert/delete events sum to {net}, live {live}")
+    os.remove(path)
+
+
+def fused_path(dev, ops, fdrv, fsecs, seed: int, log=say) -> dict:
+    """3g (1): the float path with ``fused_tick=True`` on 3a's seed,
+    traced to a JSONL file: 3a's gates, 3a's final live map, the float
+    path's kernels, the trace audit; then one more identical step on both
+    drivers and its tick profiled, fused against unfused.  Returns the
+    launch counts."""
+    from repro_torch.obs import Obs
+    path = os.path.join(ROOT, "chiprun_out", "front_door_trace.jsonl")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    obs = Obs(trace_path=path)
+    ops.reset_launch_counts()
+    drv, _, secs, recalls, _ = main_path(
+        dev, n=1_000_000, dim=128, max_postings=65504, cache_capacity=4096,
+        steps=5, fresh=20000, dels=10000, queries=256, chunk=20000,
+        seed=seed, round_size=2048, bg_ops=64,
+        index_kw=dict(fused_tick=True, obs=obs), log=log)
+    launched = ops.launch_counts()
+    log(f"  launches on the fused path: {json.dumps(launched)}")
+    for name in PATH_KERNELS["float"]:
+        if launched[name] <= 0:
+            fail(f"kernel {name} was never launched on the fused path")
+    if not drv.fused_tick:
+        fail("the fused driver does not run fused_tick")
+    if not same_live_map(drv.state, fdrv.state):
+        fail("fused_tick's live map differs from the unfused float path's")
+    log(f"  live map (id -> vector bytes) equal to 3a's: "
+        f"{drv.live_count()} ids; recall@10 per step {recalls}")
+    trace_audit(path, obs, drv.live_count(), log)
+    for label, s in (("unfused (3a)", fsecs), ("fused", secs)):
+        log(f"  {label}: load {s['load']:.3f} s (ticks included), the "
+            f"steps' ticks {s['tick']:.4f} s, inserts {s['insert']:.3f} s")
+    extra = Stream(128, 2000, seed + 7)
+    x = extra.draw(20000)
+    for label, d in (("unfused (3a)", fdrv), ("fused", drv)):
+        d.insert(x, np.arange(1_500_000, 1_520_000))
+        d.delete(np.arange(100_000, 110_000))
+        box = []
+        wall, busy, rows, _ = window(lambda: box.append(d.tick()))
+        r = box[0]
+        log(f"  one tick after one more step, {label}: wall {wall:.4f} s, "
+            f"device busy {busy:.4f} s ({100 * busy / wall:.1f}%), "
+            f"executed {r.executed}, drained {r.drained}, marked "
+            f"{r.marked}; top: " + ", ".join(
+                f"{k[:40]} {ms:.3f} ms" for k, ms, _ in rows[:3]))
+    del drv
+    torch.cuda.empty_cache()
+    return launched
+
+
+def settle(idx, most: int = 64) -> int:
+    """Tick until quiescent (no op executed or marked), at most ``most``
+    ticks, as the float path's load does after each chunk; the build-once
+    and graph engines' ticks do nothing and stop at once."""
+    for i in range(most):
+        r = idx.tick()
+        if r.executed == 0 and r.marked == 0:
+            return i + 1
+    return most
+
+
+def engine_streams(dev, ops, seed: int, log=say) -> dict:
+    """3g (2): every engine of ``list_engines()`` through one kwargs dict
+    over a ``DriftingVectorStream`` at the float path's width: per batch
+    inserts, deletes of the oldest live ids, ticks until quiescent, a
+    256-query search at k = 10 and ``exact``.  Gates: the contract harness's recall floor
+    at every batch, ``live_count()`` = inserted - deleted (spann: its
+    build count, every update refused), deleted ids never returned, and
+    the cluster engines' kernels launched.  Returns the launch counts."""
+    from repro_torch.api import list_engines, make_index
+    from repro_torch.core import metrics
+    from repro_torch.core.types import UBISConfig
+    from repro_torch.data import DriftingVectorStream
+    cfg = UBISConfig(**FRONT_CFG)
+    kw = dict(device=dev, seed=seed, round_size=2048, bg_ops_per_round=64,
+              drain_per_tick=2048)
+    counts = {}
+    for spec in list_engines():
+        name = spec.name
+        n_seed, batches, ins, dels = ENGINE_DEPTH[name]
+        log(f"  {name} ({spec.audit} audit): {n_seed} seed vectors, "
+            f"{batches} batches of {ins} inserts and {dels} deletes")
+        stream = DriftingVectorStream(dim=128, n_clusters=ENGINE_CLUSTERS,
+                                      seed=seed)
+        seeds = stream.next_batch(n_seed)
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        idx = make_index(name, cfg, seeds, seed_ids=np.arange(n_seed), **kw)
+        sync()
+        secs = dict(build=time.perf_counter() - t, insert=0.0, delete=0.0,
+                    tick=0.0, search=0.0, exact=0.0)
+        live = (np.arange(n_seed) if spec.audit != "state"
+                else np.zeros(0, np.int64))
+        deleted = np.zeros(0, np.int64)
+        next_id, recalls = n_seed, []
+
+        def timed(key, fn):
+            t = time.perf_counter()
+            out = fn()
+            sync()
+            secs[key] += time.perf_counter() - t
+            return out
+        for b in range(batches):
+            x = stream.next_batch(ins)
+            ids = np.arange(next_id, next_id + ins)
+            next_id += ins
+            r = timed("insert", lambda: idx.insert(x, ids))
+            if not spec.updatable:
+                if (r.accepted, r.cached, r.rejected) != (0, 0, ins):
+                    fail(f"{name} applied an insert: {r}")
+            else:
+                applied = np.ones(ins, bool)
+                if r.rejected:
+                    loc = idx.state.id_loc
+                    applied = (loc[torch.as_tensor(ids, device=loc.device)]
+                               .cpu().numpy() != -1)
+                if int(applied.sum()) != r.accepted + r.cached:
+                    fail(f"{name}: insert counts {r} disagree with the "
+                         "id map")
+                live = np.concatenate([live, ids[applied]])
+            picks = live[:dels]
+            r = timed("delete", lambda: idx.delete(picks))
+            if not spec.updatable:
+                if (r.deleted, r.blocked) != (0, len(picks)):
+                    fail(f"{name} applied a delete: {r}")
+            else:
+                if r.blocked:
+                    idx.flush(max_ticks=40)
+                    r.deleted += idx.delete(picks).deleted
+                if r.deleted != len(picks):
+                    fail(f"{name} deleted {r.deleted} of {len(picks)}")
+                live, deleted = live[dels:], np.concatenate([deleted, picks])
+            timed("tick", lambda: settle(idx))
+            q = stream.queries(256)
+            found = timed("search", lambda: idx.search(q, 10)).ids
+            truth = timed("exact", lambda: idx.exact(q, 10)).ids
+            rec = metrics.recall_at_k(found, truth)
+            recalls.append(round(rec, 4))
+            if not rec >= RECALL_FLOOR[name]:
+                fail(f"{name}: recall@10 {rec:.4f} < {RECALL_FLOOR[name]} "
+                     f"at batch {b}")
+            if np.isin(found, deleted).any():
+                fail(f"{name}: a deleted id came back from search")
+            if found.shape != (256, 10):
+                fail(f"{name}: search returned shape {found.shape}")
+        if idx.live_count() != len(live):
+            fail(f"{name}: live_count {idx.live_count()} != {len(live)}")
+        launched = ops.launch_counts()
+        if name != "freshdiskann":
+            for k in ENGINE_KERNELS:
+                if launched[k] <= 0:
+                    fail(f"kernel {k} was never launched by {name}")
+        log(f"    seconds {json.dumps({k: round(v, 3) for k, v in secs.items()})}"
+            f"; recall@10 {recalls} (floor {RECALL_FLOOR[name]}); live "
+            f"{idx.live_count()} (stats: inserted "
+            f"{idx.stats['inserted']:.0f}, rejected "
+            f"{idx.stats['rejected']:.0f}, deleted "
+            f"{idx.stats['deleted']:.0f}); memory_bytes "
+            f"{idx.memory_bytes()}; "
+            f"launches {json.dumps({k: v for k, v in launched.items() if v})}")
+        counts = {k: counts.get(k, 0) + v for k, v in launched.items()}
+        del idx
+        torch.cuda.empty_cache()
+    return counts
+
+
+def sequential_checks(dev, ops, seed: int, log=say) -> dict:
+    """3g (3): the sequential single-posting ops against one batched
+    ``background_round`` on the card, on a state at the float path's
+    width (d = 128, capacity 96) marked as the driver marks: a load
+    without ticks (oversize postings) and random deletes (tombstones,
+    small postings).  The two states hold the same live map (id ->
+    vector bytes; posting ids may differ, as the batch resolves
+    conflicts explicitly), equal to the marked state's, and both pass the
+    invariants.  Returns the launch counts."""
+    from repro_torch.api import make_index
+    from repro_torch.core import balance, update
+    from repro_torch.core.invariants import check_invariants
+    from repro_torch.core.types import (KIND_COMPACT, KIND_MERGE, KIND_SPLIT,
+                                        STATUS_MERGING, STATUS_SPLITTING,
+                                        UBISConfig)
+    cfg = UBISConfig(**dict(FRONT_CFG, max_postings=4096))
+    ops.reset_launch_counts()
+    stream = Stream(128, 400, seed + 11)
+    drv = make_index("ubis", cfg, stream.draw(20000), device=dev, seed=seed,
+                     round_size=2048, bg_ops_per_round=64)
+    drv.insert(stream.draw(22000), np.arange(22000), tick_between=False)
+    drv.delete(np.random.default_rng(seed).choice(22000, 3000,
+                                                  replace=False))
+    st = drv.state
+    split_due, merge_due, compact_due = (
+        x.cpu().numpy() for x in balance.detect(st, cfg))
+    lengths = st.lengths.cpu().numpy()
+    split = np.flatnonzero(split_due)
+    split = split[np.argsort(-lengths[split])]
+    merge = np.flatnonzero(merge_due)
+    merge = merge[np.argsort(lengths[merge])]
+    jobs = ([("split", int(p)) for p in split]
+            + [("compact", int(p)) for p in np.flatnonzero(compact_due)]
+            + [("merge", int(p)) for p in merge])
+    seen, picked = set(), []
+    for kind, p in jobs:
+        if p not in seen:
+            seen.add(p)
+            picked.append((kind, p))
+    jobs = picked[:64]
+    for status, kinds_ in ((STATUS_SPLITTING, ("split", "compact")),
+                           (STATUS_MERGING, ("merge",))):
+        pids = [p for k, p in jobs if k in kinds_]
+        if pids:
+            st = update.mark_status(st, torch.tensor(pids, device=dev),
+                                    status)
+    drv.state = st
+    code = {"split": KIND_SPLIT, "merge": KIND_MERGE,
+            "compact": KIND_COMPACT}
+    kinds = torch.tensor([code[k] for k, _ in jobs], device=dev)
+    pids = torch.tensor([p for _, p in jobs], device=dev)
+    by_kind = {k: sum(1 for j, _ in jobs if j == k) for k in code}
+    if not (by_kind["split"] and by_kind["merge"]):
+        fail(f"the marked batch lacks splits or merges: {by_kind}")
+    t = time.perf_counter()
+    seq = balance.execute_sequential(drv.snapshot(), cfg, jobs)
+    sync()
+    t_seq = time.perf_counter() - t
+    t = time.perf_counter()
+    bat, rr = balance.background_round(drv.snapshot(), cfg, kinds, pids)
+    sync()
+    t_bat = time.perf_counter() - t
+    for label, out in (("sequential", seq), ("batched", bat)):
+        check_invariants(out, cfg)
+        if not same_live_map(out, st):
+            fail(f"the {label} execution changed the live map")
+    rr = rr.to_host()
+    log(f"  marked batch {json.dumps(by_kind)} on {drv.live_count()} live "
+        f"vectors: sequential {t_seq:.3f} s, batched {t_bat:.3f} s "
+        f"(executed {rr['executed']}, deferred {rr['deferred']}); live "
+        "maps equal, invariants hold")
+    del drv, seq, bat
+    torch.cuda.empty_cache()
+    return ops.launch_counts()
 
 
 # ---------------------------------------------------------------------------
@@ -1972,7 +2341,8 @@ def time_assign_shapes(ops, ref, st, flat, live) -> None:
     version and ``baddbmm``, and the re-train's full re-encode (every
     slot of the pool, ``encode_tiles``) with no plain run (its score
     matrix would take 103 GB), held against the plain version on its
-    first 65,536 rows."""
+    first 65,536 rows; its library yardstick is ``baddbmm`` over the
+    rows in 48 chunks, summed in one timed call."""
     M, C, d = st.vectors.shape
     V, m, K, ds = st.pq_codebooks.shape
     cb_all = st.pq_codebooks.reshape(V * m, K, ds).contiguous()
@@ -2002,15 +2372,29 @@ def time_assign_shapes(ops, ref, st, flat, live) -> None:
                  cn1 - 2.0 * torch.bmm(head.contiguous(),
                                        cb.transpose(1, 2)))
     del got
+    cbt = cb.transpose(1, 2)
+    tile = M * C // 48                  # a 2 GB score block a chunk
+
+    def library():
+        """The same scores by ``baddbmm`` (no argmin), chunk by chunk."""
+        buf = torch.empty((m, tile, K), device=cb.device)
+        for off in range(0, M * C, tile):
+            part = every[:, off:off + tile]
+            if part.shape[1] == tile:
+                torch.baddbmm(cn1, part, cbt, alpha=-2, out=buf)
+            else:
+                torch.baddbmm(cn1, part, cbt, alpha=-2)
     enc = (median_ms(lambda: ops.kmeans_assign(every, cb), reps=5, warm=1),
-           bound(*assign_work(m, m, M * C, K, ds)))
+           bound(*assign_work(m, m, M * C, K, ds)),
+           median_ms(library, reps=5, warm=1))
     torch.cuda.synchronize()
     say(f"  kmeans_assign at the insert round's encode ({J} rows x {V * m} "
         f"codebooks over {m}, {K} x {ds}): {ins[0]:.4f} ms (plain "
         f"{ins[1]:.4f}, baddbmm {ins[2]:.4f}, bound {ins[3][0]:.4f} by "
         f"{ins[3][1]}); at the full re-encode ({M * C} rows x {m} "
         f"codebooks, {K} x {ds}): {enc[0]:.4f} ms (bound {enc[1][0]:.4f} "
-        f"by {enc[1][1]})")
+        f"by {enc[1][1]}, baddbmm in {-(-M * C // tile)} chunks of {tile} "
+        f"rows {enc[2]:.4f})")
 
 
 def time_gathers(ops, ref, fdrv, qdrv, x, counts) -> list:
@@ -2193,12 +2577,6 @@ def profile_windows(drv, stream, qdrv, qstream, tdrv, tstream,
     one stream do not overlap; on the tiered path the tier's copies run
     on a side stream, reported apart with their overlap); the wall time
     includes the profiler's own host overhead."""
-    from torch.profiler import ProfilerActivity, profile
-
-    def dev_us(ev):
-        return getattr(ev, "self_device_time_total",
-                       getattr(ev, "self_cuda_time_total", 0.0))
-
     next_id = int(drv.state.id_loc.shape[0]) - 200_000
     windows = {}
 
@@ -2221,21 +2599,7 @@ def profile_windows(drv, stream, qdrv, qstream, tdrv, tstream,
                      ("quant_stream_step", lambda: step(qdrv, qstream)),
                      ("tier_stream_step", lambda: step(tdrv, tstream)),
                      ("serve_embed_batch", embed_batch)):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-        # device-side events only: an aten op's own entry repeats the
-        # time of the kernels it launched
-        rows = sorted(((ev.key, dev_us(ev) / 1e3, ev.count)
-                       for ev in prof.key_averages()
-                       if str(ev.device_type).endswith("CUDA")
-                       and dev_us(ev) > 0),
-                      key=lambda r: -r[1])
-        busy = sum(r[1] for r in rows) / 1e3
+        wall, busy, rows, prof = window(fn)
         windows[name] = {
             "wall_s": wall, "device_busy_s": busy,
             "busy_share": busy / wall if wall else 0.0,
@@ -2396,6 +2760,15 @@ def main() -> None:
         "full width, 2048 docs x 512 tokens")
     server, launched, toks, _ = serve_path(dev, ops, ref, seed=args.seed)
     counts = {k: counts.get(k, 0) + v for k, v in launched.items()}
+
+    say("phase 3g: the front door (make_index over list_engines(), "
+        "fused_tick, the sequential ops, the JSONL tracer)")
+    for launched in (
+            fused_path(dev, ops, paths["float"][0], paths["float"][4],
+                       args.seed),
+            engine_streams(dev, ops, args.seed),
+            sequential_checks(dev, ops, args.seed)):
+        counts = {k: counts.get(k, 0) + v for k, v in launched.items()}
 
     say("phase 4: kernel times on the main paths' inputs")
     fdrv, fq, _, fstream, _ = paths["float"]

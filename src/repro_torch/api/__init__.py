@@ -1,17 +1,31 @@
-"""The port's front door: ``make_index`` and the result types.
+"""One front door: the engine-agnostic streaming-index API.
 
-The registry imports the driver, which imports the result types from
-here, so ``make_index`` loads lazily (as in the JAX package's ``api``).
+    from repro_torch.api import make_index, list_engines
+
+    idx = make_index("ubis", cfg, seed_vectors)      # any engine name
+    idx.insert(vecs, ids); idx.tick()
+    res = idx.search(queries, k=10)                  # SearchResult
+
+Engines: ``ubis`` | ``spfresh`` | ``spann`` | ``freshdiskann``, all
+conforming to :class:`StreamingIndex`, so an engine comparison is one
+loop over names.  ``list_engines()`` returns each engine's
+:class:`EngineSpec` with its capability flags.
+
+The registry imports the engine modules, which import the result types
+from here, so the registry's names load lazily (as in the JAX package's
+``api``).
 """
-from .types import (SearchRequest, SearchResult, Ticket, TickReport,
-                    UpdateResult)
+from .types import (SearchRequest, SearchResult, StreamingIndex,  # noqa: F401
+                    Ticket, TickReport, UpdateResult)
 
-__all__ = ["ENGINES", "make_index", "SearchRequest", "SearchResult",
-           "Ticket", "TickReport", "UpdateResult"]
+__all__ = ["StreamingIndex", "SearchResult", "UpdateResult", "TickReport",
+           "SearchRequest", "Ticket", "make_index", "list_engines",
+           "engine_spec", "EngineSpec", "ENGINES"]
 
 
 def __getattr__(name):
-    if name in ("make_index", "ENGINES"):
+    if name in ("make_index", "ENGINES", "list_engines", "engine_spec",
+                "EngineSpec"):
         from . import registry
         return getattr(registry, name)
     raise AttributeError(f"module 'repro_torch.api' has no attribute {name!r}")

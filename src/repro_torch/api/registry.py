@@ -1,39 +1,163 @@
 """Engine registry: ``make_index(engine, cfg, seed_vectors, **kw)``.
 
-This slice of the port knows the two single-device cluster engines,
-``ubis`` and ``spfresh``; every other engine name of the JAX package's
-registry (spann, freshdiskann, ubis-sharded, ubis-cluster) raises until
-its slice is ported.  Keyword arguments unknown to an engine are
-dropped, so one kwargs dict can drive an engine-comparison loop; the
-JAX driver's knobs are all known, and the two values the port does not
-implement (``tier_rerank_host=False``, an ``obs_profile_dir``) raise.
-The index runs on the card unless ``device="cpu"`` is passed; ``obs=`` hands
-the driver an observability plane to share (the serving layer's), so
-one exposition covers the driver and the request spans.
+One constructor for every single-device engine of the paper's
+comparison.  All engines take the same ``UBISConfig`` (the registry
+rewrites ``mode`` and, for the graph baseline, translates to a
+``GraphConfig``), and keyword arguments unknown to an engine are
+dropped, so one kwargs dict drives a whole engine-comparison loop:
+
+    for spec in list_engines():
+        idx = make_index(spec.name, cfg, seed, seed_ids=ids0,
+                         round_size=512, bg_ops_per_round=8)
+        ...same insert/delete/search/tick/flush loop...
+
+Each entry is an :class:`EngineSpec`: name, constructor, allowed kwargs and
+the capability flags (``supports_tier`` / ``supports_pq`` /
+``supports_shards`` / ``updatable`` and the contract harness's ``audit``
+tier), the same as the JAX package's entries.  Each engine's kwargs are
+the JAX package's plus the port's own: ``device`` (the card unless
+``device="cpu"``), and where a ``UBISDriver`` is built, its injectable
+random draws ``kmeans_init``, ``pq_init`` and ``pq_keys``.
+
+``seed_vectors`` follow each engine's construction story: the cluster
+engines (ubis/spfresh) use them for k-means seeding only (NOT inserted);
+the build-once engines (spann, freshdiskann) ingest them under
+``seed_ids`` (default ``arange``).  The sharded engines (ubis-sharded,
+ubis-cluster) raise until their slice is ported.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Tuple
 
-from ..core.driver import UBISDriver
+import numpy as np
+
 from ..core.types import UBISConfig
+from .types import StreamingIndex
 
-ENGINES = ("ubis", "spfresh")
-_UBIS_KW = frozenset({
+_PORT_KW = frozenset({"device", "kmeans_init", "pq_init", "pq_keys"})
+_DRIVER_KW = frozenset({
     "seed", "round_size", "bg_ops_per_round", "drain_per_tick",
-    "insert_retries", "gc_lag", "reassign_after_split", "fused_tick",
-    "device", "kmeans_init", "pq_retrain_every", "pq_init", "pq_keys",
-    "tier_moves_per_tick", "tier_rerank_host", "tier_async", "obs",
-    "obs_profile_dir"})
+    "insert_retries", "gc_lag", "reassign_after_split",
+    "pq_retrain_every", "tier_moves_per_tick", "tier_rerank_host",
+    "tier_async", "obs", "obs_profile_dir"}) | _PORT_KW
+_UBIS_KW = _DRIVER_KW | {"fused_tick"}
+_SPANN_KW = frozenset({"seed", "round_size", "obs"}) | _PORT_KW
+_GRAPH_KW = frozenset({"max_nodes", "degree", "beam", "alpha",
+                       "consolidate_every", "obs", "device"})
+#: engines of the JAX package's registry whose slice is not ported yet
+NOT_PORTED = ("ubis-sharded", "ubis-cluster")
 
 
-def make_index(engine: str, cfg: UBISConfig, seed_vectors, **kw):
-    """Build a ``ubis`` or ``spfresh`` index (``seed_vectors`` seed the
-    k-means centroids; they are not inserted)."""
-    if engine not in ENGINES:
-        raise ValueError(f"engine {engine!r} is not ported; choose from "
+def _pick(kw: dict, allowed: frozenset) -> dict:
+    return {k: v for k, v in kw.items() if k in allowed}
+
+
+def _with_mode(cfg: UBISConfig, mode: str) -> UBISConfig:
+    return cfg if cfg.mode == mode else dataclasses.replace(cfg, mode=mode)
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineSpec:
+    """One registry entry: how to build an engine + what it supports.
+
+    ``audit`` is the contract-harness audit tier (``state`` = full
+    IndexState multiset equality, ``count`` = live-count + no
+    resurrection, ``static`` = every update refused); ``build`` is the
+    lazily-importing constructor (same signature for every engine).
+    """
+
+    name: str
+    description: str
+    build: Callable[..., StreamingIndex]
+    kwargs: frozenset
+    supports_tier: bool = False
+    supports_pq: bool = False
+    supports_shards: bool = False
+    updatable: bool = True
+    audit: str = "state"
+
+    def make(self, cfg: UBISConfig, seed_vectors, *, seed_ids=None,
+             **kw) -> StreamingIndex:
+        return self.build(cfg, seed_vectors, seed_ids, _pick(kw, self.kwargs))
+
+
+def _build_ubis_mode(mode):
+    def build(cfg, seed_vectors, seed_ids, kw):
+        from ..core.driver import UBISDriver
+        return UBISDriver(_with_mode(cfg, mode), seed_vectors, **kw)
+    return build
+
+
+def _seed_arrays(seed_vectors, seed_ids):
+    seeds = np.asarray(seed_vectors, np.float32)
+    ids = (np.arange(len(seeds)) if seed_ids is None
+           else np.asarray(seed_ids, np.int64))
+    return seeds, ids
+
+
+def _build_spann(cfg, seed_vectors, seed_ids, kw):
+    from ..core.spann import SPANNStatic
+    seeds, ids = _seed_arrays(seed_vectors, seed_ids)
+    return SPANNStatic(_with_mode(cfg, "ubis"), seeds, ids, **kw)
+
+
+def _build_freshdiskann(cfg, seed_vectors, seed_ids, kw):
+    from ..core.freshdiskann import FreshDiskANN, GraphConfig
+    seeds, ids = _seed_arrays(seed_vectors, seed_ids)
+    kw = dict(kw)
+    obs = kw.pop("obs", None)
+    device = kw.pop("device", None)
+    kw.setdefault("max_nodes", 1 << 17)
+    gcfg = GraphConfig(dim=cfg.dim, **kw)
+    return FreshDiskANN(gcfg, seeds, ids, obs=obs, device=device)
+
+
+_REGISTRY: dict[str, EngineSpec] = {spec.name: spec for spec in (
+    EngineSpec(
+        name="ubis",
+        description="the paper's balanced updatable cluster index "
+                    "(UBISDriver)",
+        build=_build_ubis_mode("ubis"), kwargs=_UBIS_KW,
+        supports_tier=True, supports_pq=True, audit="state"),
+    EngineSpec(
+        name="spfresh",
+        description="UBISDriver in the SPFresh lock/strict-trigger mode",
+        build=_build_ubis_mode("spfresh"), kwargs=_UBIS_KW,
+        supports_tier=True, supports_pq=True, audit="state"),
+    EngineSpec(
+        name="spann",
+        description="build-once SPANN snapshot (updates refused as "
+                    "rejected/blocked counts)",
+        build=_build_spann, kwargs=_SPANN_KW,
+        updatable=False, audit="static"),
+    EngineSpec(
+        name="freshdiskann",
+        description="FreshDiskANN Vamana graph baseline",
+        build=_build_freshdiskann, kwargs=_GRAPH_KW, audit="count"),
+)}
+
+ENGINES = tuple(_REGISTRY)
+
+
+def list_engines() -> Tuple[EngineSpec, ...]:
+    """Every registered engine's spec, registration order."""
+    return tuple(_REGISTRY.values())
+
+
+def engine_spec(engine: str) -> EngineSpec:
+    """The :class:`EngineSpec` for one engine name."""
+    if engine in NOT_PORTED:
+        raise ValueError(f"engine {engine!r} is not ported yet; choose "
+                         f"from {ENGINES}")
+    if engine not in _REGISTRY:
+        raise ValueError(f"unknown engine {engine!r}; choose from "
                          f"{ENGINES}")
-    if cfg.mode != engine:
-        cfg = dataclasses.replace(cfg, mode=engine)
-    return UBISDriver(cfg, seed_vectors,
-                      **{k: v for k, v in kw.items() if k in _UBIS_KW})
+    return _REGISTRY[engine]
+
+
+def make_index(engine: str, cfg: UBISConfig, seed_vectors, *,
+               seed_ids=None, **kw) -> StreamingIndex:
+    """Build any engine behind the ``StreamingIndex`` front door."""
+    return engine_spec(engine).make(cfg, seed_vectors, seed_ids=seed_ids,
+                                    **kw)

@@ -1,9 +1,11 @@
-"""Result types of the streaming-index contract (the port's subset), and
-the request-first serving types that ``repro_torch.serving`` hands out."""
+"""The streaming-index contract: the result types, the
+:class:`StreamingIndex` protocol every engine presents, and the
+request-first serving types that ``repro_torch.serving`` hands out."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import (Any, Callable, Mapping, Optional, Protocol,
+                    runtime_checkable)
 
 import numpy as np
 
@@ -122,3 +124,40 @@ class Ticket:
         self._t_done = t_done
         self._done = True
         self._pump = None
+
+
+@runtime_checkable
+class StreamingIndex(Protocol):
+    """The one front door every engine presents.
+
+    Engines conform structurally: ``isinstance(x, StreamingIndex)``
+    checks method presence at runtime.  ``stats`` is a mapping of
+    monotone counters (the shared schema of ``obs.metrics``).
+    ``snapshot()`` returns a state a single device can use again
+    (``load_snapshot`` on a fresh engine of the same kind).
+    """
+
+    def insert(self, vecs, ids) -> UpdateResult: ...
+
+    def delete(self, ids) -> UpdateResult: ...
+
+    def search(self, queries, k: int) -> SearchResult: ...
+
+    def tick(self) -> TickReport: ...
+
+    def flush(self, max_ticks: int = 200) -> int: ...
+
+    def snapshot(self) -> Any: ...
+
+    def memory_bytes(self) -> int: ...
+
+    def memory_tiers(self) -> Mapping: ...
+
+    def exact(self, queries, k: int) -> SearchResult: ...
+
+    def posting_lengths(self) -> np.ndarray: ...
+
+    def live_count(self) -> int: ...
+
+    @property
+    def stats(self) -> Mapping: ...

@@ -1,19 +1,27 @@
-"""Balance Detector + the batched background round (paper IV-C).
+"""Balance Detector + structural background operations (paper IV-C).
 
 UBIS keeps posting lengths in memory and scans them periodically
 (``detect``), and splits with a balance factor: a split whose small side
 is under ``f * total`` moves that side to nearer postings instead of
 persisting a small posting (Alg. 1 BalanceSplit).
 
-``background_round`` executes the whole marked batch (kinds in an int
-lane) at once.  The JAX package writes it as one jitted program with
-``vmap`` over the batch; here the batch is an explicit leading dimension,
-the free-slot grant scan is a loop over the (small) batch on device
-tensors, and the two ``lax.cond`` gates (split planning, post-op
-reassign) are host branches — the only host reads in the round.  The
-sequential single-op functions of the JAX package (``balance_split``,
-``merge_postings``, ...) are not ported yet.  The driver sequences
-rounds two-phase:
+Two layers of ops live here, as in the JAX package:
+  * single-posting transforms (``balance_split`` / ``merge_postings`` /
+    ``compact_posting`` / ``reassign_check``): the reference semantics,
+    kept as the sequential oracle (``execute_sequential``) that the
+    batched round is held against;
+  * ``background_round``: the production path, the whole marked batch
+    (kinds in an int lane) at once.  The JAX package writes it as one
+    jitted program with ``vmap`` over the batch; here the batch is an
+    explicit leading dimension, the free-slot grant scan is a loop over
+    the (small) batch on device tensors, and the two ``lax.cond`` gates
+    (split planning, post-op reassign) are host branches, the only host
+    reads in the round.
+Both layers pack tiles with the same ``_pack_rows`` / ``_merge_rows``,
+so the oracle and the production path cannot drift.  ``mark_round``
+(``select_candidates`` + ``mark_selected``) picks and marks the next
+batch on the device for the driver's ``fused_tick``.  The driver
+sequences rounds two-phase:
 
   round t   : mark SPLITTING/MERGING  (foreground traffic diverts to cache)
   round t+1 : execute; old posting -> DELETED with successor pointers.
@@ -29,7 +37,8 @@ from . import version_manager as vm
 from .types import (KIND_COMPACT, KIND_MERGE, KIND_NONE, KIND_SPLIT, NO_ID,
                     NO_SUCC, STATUS_DELETED, STATUS_MERGING, STATUS_NORMAL,
                     STATUS_SPLITTING, BackgroundRound, IndexState, UBISConfig)
-from .update import (_flat, batched_append, cache_append, free_postings)
+from .update import (_flat, alloc_postings, batched_append, cache_append,
+                     free_postings, mark_status)
 from .version_manager import masked_add_, masked_set_
 
 
@@ -168,6 +177,307 @@ def _merge_rows(t1, i1, m1, t2, i2, m2):
     rows = torch.where(keep[..., None], rows, 0.0)
     rids = torch.where(keep, rids, NO_ID)
     return rows, rids, keep, keep.sum(-1).to(torch.int32)
+
+
+def _encode_written(state, cfg, rows):
+    """Codes for freshly packed tile rows (B, C, d), under the ACTIVE
+    codebook: every tile rewrite (split child, merge product, compact)
+    is the lazy re-encode point of the versioned-codebook scheme."""
+    cb = state.pq_codebooks[state.pq_active.long()]
+    stored = rows.to(state.vectors.dtype).float()
+    return pq.encode_tiles(cb, stored)
+
+
+def _write_members(state, cfg, pid, tile, tids, member_mask):
+    """Compact the ``member_mask`` rows of a source tile into posting
+    ``pid`` (freshly allocated and empty, or ``pid``'s own tile), and
+    repoint ``id_loc``.  Packs with ``_pack_rows``, as the batched round
+    does."""
+    C = cfg.capacity
+    rows, rids, keep, n = _pack_rows(tile[None], tids[None],
+                                     member_mask[None])
+    state.vectors[pid] = rows[0].to(state.vectors.dtype)
+    state.ids[pid] = rids[0]
+    state.slot_valid[pid] = keep[0]
+    state.used[pid] = n[0]
+    state.lengths[pid] = n[0]
+    flat = pid * C + torch.arange(C, device=tile.device)
+    masked_set_(state.id_loc, rids[0].long().clamp(0, cfg.max_ids - 1),
+                flat.to(torch.int32), keep[0])
+    if cfg.use_pq:
+        state.codes[pid] = _encode_written(state, cfg, rows)[0]
+        state.pq_posting_slot[pid] = state.pq_active
+    return state
+
+
+def _posting(state, pid):
+    """Copies of posting ``pid``'s tile, ids and slot mask (the ops write
+    the state in place, so a source tile must not alias it)."""
+    return (state.vectors[pid].clone(), state.ids[pid].clone(),
+            state.slot_valid[pid].clone())
+
+
+def _normal_others(state, pid):
+    """Append-target eligibility: allocated NORMAL float-resident
+    postings other than ``pid``."""
+    status = vm.unpack_status(state.rec_meta)
+    other = (state.allocated & (status == STATUS_NORMAL)
+             & ~state.tier_spilled)
+    other[pid] = False
+    return other
+
+
+def _pid(state, pid) -> torch.Tensor:
+    return torch.as_tensor(pid, device=state.device).to(torch.int64)
+
+
+# ---------------------------------------------------------------------------
+# BalanceSplit — paper Algorithm 1 (the sequential oracle)
+# ---------------------------------------------------------------------------
+
+def balance_split(state: IndexState, cfg: UBISConfig, pid):
+    """Split posting ``pid`` (status SPLITTING, marked a round earlier).
+
+    Alg. 1: 2-means over the live rows; in UBIS mode, if the small side
+    is under ``f * total``, its rows move to nearer existing postings
+    and the rest fold into the big side (lines 7-15), so no small
+    posting is persisted.  SPFresh mode keeps both sides.  A survivor
+    still over ``l_max`` falls back to the median bisection.  Two slots
+    are consumed in the worst case (the caller checks ``free_top >= 2``).
+    Updates ``state`` in place; returns (state, the two new pids)."""
+    pid = _pid(state, pid)
+    tile, tids, mask = _posting(state, pid)
+    ver = state.global_version + 1
+    x = tile.float()
+
+    assign, c0, c1 = _two_means(
+        tile[None], mask[None], cfg.kmeans_iters,
+        init="median" if cfg.is_ubis else "farthest")
+    assign, c0, c1 = assign[0], c0[0], c1[0]
+    n0 = ((assign == 0) & mask).sum()
+    n1 = ((assign == 1) & mask).sum()
+    small_is_0 = n0 <= n1
+    nmin = torch.minimum(n0, n1)
+    ntot = torch.clamp(n0 + n1, min=1)
+    imbalanced = torch.as_tensor(cfg.is_ubis, device=x.device) & (
+        nmin.float() < cfg.balance_factor * ntot.float())
+
+    small_side = torch.where(small_is_0, 0, 1)
+    small_mask = (assign == small_side) & mask
+    big_mask = (assign == 1 - small_side) & mask
+    c_big = torch.where(small_is_0, c1, c0)
+    c_small = torch.where(small_is_0, c0, c1)
+
+    # --- Alg. 1 lines 10-13: nearer-posting search for the small side ---
+    sc = ops.centroid_score(x, state.centroids,
+                            _normal_others(state, pid))          # (C, M)
+    best_other = torch.argmin(sc, dim=-1)
+    best_d = torch.gather(sc, 1, best_other[:, None])[:, 0]
+    del sc
+    tsq = (x ** 2).sum(-1)
+    d_big = tsq - 2 * (x @ c_big) + (c_big ** 2).sum()
+    # sc excludes ||p||^2, so compare on the same footing
+    nearer = best_d < d_big - tsq
+    move_out = imbalanced & small_mask & nearer
+    fold_in = imbalanced & small_mask & ~nearer
+    members_a = torch.where(imbalanced, big_mask | fold_in, big_mask)
+    members_b = torch.where(imbalanced, torch.zeros_like(small_mask),
+                            small_mask)
+
+    # --- termination guard: median bisection when a survivor stays
+    # oversize (Lloyd collapsed to an outlier-vs-rest split)
+    oversized = torch.as_tensor(cfg.is_ubis, device=x.device) & (
+        (members_a.sum() > cfg.l_max) | (members_b.sum() > cfg.l_max))
+    med = _median_bisect(tile[None], mask[None])[0]
+    med_a = (med == 0) & mask
+    med_b = (med == 1) & mask
+    members_a = torch.where(oversized, med_a, members_a)
+    members_b = torch.where(oversized, med_b, members_b)
+    move_out = move_out & ~oversized
+    c_big = torch.where(oversized,
+                        _masked_mean(tile[None], med_a[None], c_big[None])[0],
+                        c_big)
+    c_small = torch.where(
+        oversized, _masked_mean(tile[None], med_b[None], c_small[None])[0],
+        c_small)
+    cent_a = _masked_mean(tile[None], members_a[None], c_big[None])[0]
+    cent_b = _masked_mean(tile[None], members_b[None], c_small[None])[0]
+
+    # allocate both slots unconditionally; slot b returns to the free
+    # list when the imbalanced branch leaves it empty
+    state, pids_new = alloc_postings(state, cfg, 2,
+                                     torch.stack([cent_a, cent_b]), ver)
+    pa, pb = pids_new[0], pids_new[1]
+    state = _write_members(state, cfg, pa, tile, tids, members_a)
+    state = _write_members(state, cfg, pb, tile, tids, members_b)
+
+    b_empty = ~members_b.any()
+    state = free_postings(state, torch.stack([pb, torch.full_like(pb, -1)]),
+                          torch.tensor([True, False], device=x.device)
+                          & b_empty)
+
+    # move-out appends (divert to the cache when targets are full)
+    state, ok, _ = batched_append(state, cfg, tile, tids,
+                                  torch.where(move_out, best_other, -1),
+                                  move_out)
+    spill = move_out & ~ok
+    state, _ = cache_append(state, cfg, tile, tids,
+                            torch.where(spill, best_other, -1), spill)
+
+    # retire the parent: DELETED with successor pointers
+    succ_b = torch.where(b_empty, -1, pb)
+    pn = state.nbrs[pid].clone()
+    state.rec_meta = vm.transition(state.rec_meta, pid[None],
+                                   STATUS_DELETED, ver[None])
+    state.rec_succ = vm.set_successors(state.rec_succ, pid[None], pa[None],
+                                       succ_b[None])
+    # neighbourhood graph: children point at each other + parent's nbrs
+    state.nbrs[pa] = torch.cat([torch.where(b_empty, pa, pb)[None],
+                                pn[:-1].long()]).to(torch.int32)
+    state.nbrs[pb] = torch.cat([pa[None], pn[:-1].long()]).to(torch.int32)
+    state.global_version = ver
+    return state, pids_new
+
+
+def compact_posting(state: IndexState, cfg: UBISConfig, pid):
+    """Alg. 1 lines 1-4: drop tombstones, rewrite in place."""
+    pid = _pid(state, pid)
+    tile, tids, mask = _posting(state, pid)
+    state = _write_members(state, cfg, pid, tile, tids, mask)
+    state.global_version = state.global_version + 1
+    return state
+
+
+# ---------------------------------------------------------------------------
+# merge (paper III-B2): a small posting folds into its nearest neighbour
+# ---------------------------------------------------------------------------
+
+def merge_postings(state: IndexState, cfg: UBISConfig, pid):
+    """Merge posting ``pid`` with the nearest posting whose combined size
+    stays under l_max.  Produces ONE new posting; both parents retire
+    with successor pointers to it.  Consumes one slot.  Returns (state,
+    the new pid, whether a partner was found)."""
+    C, d = cfg.capacity, cfg.dim
+    pid = _pid(state, pid)
+    dev = state.device
+    status = vm.unpack_status(state.rec_meta)
+    n_me = state.lengths[pid]
+    eligible = (state.allocated & (status == STATUS_NORMAL)
+                & ~state.tier_spilled
+                & (state.lengths + n_me < cfg.l_max))
+    eligible[pid] = False
+    sc = ops.centroid_score(state.centroids[pid][None].float(),
+                            state.centroids, eligible)[0]
+    partner = torch.argmin(sc)
+    has_partner = sc[partner] < BIG / 2
+    ver = state.global_version + 1
+
+    t1, i1, m1 = _posting(state, pid)
+    t2, i2, m2 = _posting(state, partner)
+    m2 = m2 & has_partner
+    n1, n2 = m1.sum(), m2.sum()
+    own = state.centroids[pid].float()
+    cent = (_masked_mean(t1[None], m1[None], own[None])[0] * n1
+            + _masked_mean(t2[None], m2[None],
+                           torch.zeros((1, d), device=dev))[0] * n2
+            ) / torch.clamp(n1 + n2, min=1)
+
+    state, pids_new = alloc_postings(state, cfg, 1, cent[None], ver)
+    pnew = pids_new[0]
+    # both parents' members (total < l_max <= C by eligibility), packed
+    # by _merge_rows as in the batched round
+    rows, rids, keep, n = _merge_rows(t1[None], i1[None], m1[None],
+                                      t2[None], i2[None], m2[None])
+    state.vectors[pnew] = rows[0].to(state.vectors.dtype)
+    state.ids[pnew] = rids[0]
+    state.slot_valid[pnew] = keep[0]
+    state.used[pnew] = n[0]
+    state.lengths[pnew] = n[0]
+    flat = pnew * C + torch.arange(C, device=dev)
+    masked_set_(state.id_loc, rids[0].long().clamp(0, cfg.max_ids - 1),
+                flat.to(torch.int32), keep[0])
+    if cfg.use_pq:
+        state.codes[pnew] = _encode_written(state, cfg, rows)[0]
+        state.pq_posting_slot[pnew] = state.pq_active
+
+    parents = torch.stack([pid, torch.where(has_partner, partner, -1)])
+    state.rec_meta = vm.transition(state.rec_meta, parents, STATUS_DELETED,
+                                   torch.stack([ver, ver]))
+    state.rec_succ = vm.set_successors(state.rec_succ, parents,
+                                       torch.stack([pnew, pnew]), -1)
+    state.nbrs[pnew] = state.nbrs[pid]
+    state.global_version = ver
+    return state, pnew, has_partner
+
+
+# ---------------------------------------------------------------------------
+# LIRE reassign (paper III-B2): post split/merge closure maintenance
+# ---------------------------------------------------------------------------
+
+def reassign_check(state: IndexState, cfg: UBISConfig, pid):
+    """For each vector of ``pid``: if a strictly nearer NORMAL posting
+    exists, move it there (append + tombstone here).  Returns (state,
+    moved count)."""
+    pid = _pid(state, pid)
+    tile, tids, mask = _posting(state, pid)
+    tile = tile.float()
+    sc = ops.centroid_score(tile, state.centroids,
+                            _normal_others(state, pid))
+    best_other = torch.argmin(sc, dim=-1)
+    best_d = torch.gather(sc, 1, best_other[:, None])[:, 0]
+    del sc
+    own = state.centroids[pid].float()
+    d_own = (own * own).sum() - 2 * (tile @ own)
+    move = mask & (best_d < d_own)
+    state, ok, _ = batched_append(state, cfg, tile, tids,
+                                  torch.where(move, best_other, -1), move)
+    moved = move & ok
+    # tombstone moved rows here
+    state.slot_valid[pid] = state.slot_valid[pid] & ~moved
+    state.lengths[pid] -= moved.sum().to(state.lengths.dtype)
+    state.global_version = state.global_version + 1
+    return state, moved.sum()
+
+
+def execute_sequential(state: IndexState, cfg: UBISConfig, jobs,
+                       reassign: bool = True) -> IndexState:
+    """Execute marked ``(kind, pid)`` jobs one at a time with the
+    single-posting ops, reading status, length and free slots on the
+    host before each: the oracle that one ``background_round`` over the
+    same batch must equal (the same live id -> vector multiset; posting
+    ids may differ, as conflicts resolve explicitly in the batch)."""
+    dev = state.device
+    for kind, pid in jobs:
+        st_now = int(vm.unpack_status(state.rec_meta[pid]))
+        want = STATUS_MERGING if kind == "merge" else STATUS_SPLITTING
+        if st_now != want or not bool(state.allocated[pid]):
+            continue
+        free_top = int(state.free_top)
+        pid_t = torch.tensor([pid], device=dev)
+        if kind == "split":
+            if free_top < 2:
+                state = mark_status(state, pid_t, STATUS_NORMAL)
+                continue
+            if int(state.lengths[pid]) <= cfg.l_max:
+                state = compact_posting(state, cfg, pid)
+                state = mark_status(state, pid_t, STATUS_NORMAL)
+            else:
+                state, new_pids = balance_split(state, cfg, pid)
+                if reassign:
+                    for np_ in new_pids.tolist():
+                        if np_ >= 0 and bool(state.allocated[np_]):
+                            state, _ = reassign_check(state, cfg, np_)
+        elif kind == "merge":
+            if free_top < 1:
+                state = mark_status(state, pid_t, STATUS_NORMAL)
+                continue
+            state, pnew, _ = merge_postings(state, cfg, pid)
+            if reassign:
+                state, _ = reassign_check(state, cfg, pnew)
+        elif kind == "compact":
+            state = compact_posting(state, cfg, pid)
+            state = mark_status(state, pid_t, STATUS_NORMAL)
+    return state
 
 
 # ---------------------------------------------------------------------------
@@ -462,9 +772,8 @@ def background_round(state: IndexState, cfg: UBISConfig, kinds, pids,
     if cfg.use_pq:
         # every tile written this round re-encodes under the ACTIVE
         # codebook: the lazy upgrade point of the versioned codebooks
-        cb = state.pq_codebooks[state.pq_active.long()]
-        stored = w_rows.to(state.vectors.dtype).float()
-        masked_set_(state.codes, w_pid, pq.encode_tiles(cb, stored), w_valid)
+        masked_set_(state.codes, w_pid, _encode_written(state, cfg, w_rows),
+                    w_valid)
         masked_set_(state.pq_posting_slot, w_pid, state.pq_active, w_valid)
 
     # ---- batched retirement: DELETED + successor installation ---------
@@ -545,3 +854,51 @@ def background_round(state: IndexState, cfg: UBISConfig, kinds, pids,
         moved_out=(mo & mo_ok).sum(), spilled=n_spill, reassigned=n_re,
         freed=b_empty.sum())
     return state, rr
+
+
+# ---------------------------------------------------------------------------
+# device-side selection + mark (the driver's fused_tick)
+# ---------------------------------------------------------------------------
+
+def mark_selected(rec_meta, kinds, pids):
+    """Transition the selected batch to its window status on the device
+    (SPLITTING for split/compact lanes, MERGING for merge lanes): the
+    mark half of the two-phase window.  Returns a new tensor."""
+    split_like = (kinds == KIND_SPLIT) | (kinds == KIND_COMPACT)
+    rec_meta = vm.transition(rec_meta, torch.where(split_like, pids, -1),
+                             STATUS_SPLITTING)
+    return vm.transition(rec_meta, torch.where(kinds == KIND_MERGE, pids, -1),
+                         STATUS_MERGING)
+
+
+def mark_round(state: IndexState, cfg: UBISConfig, k: int):
+    """Device-side candidate selection + mark: the ``fused_tick``
+    replacement for the driver's ``detect()`` host round-trip.  Returns
+    (state, kinds, pids, n_marked); kinds/pids stay on the device and
+    feed the next tick's ``background_round``, and only the count
+    crosses to the host."""
+    kinds, pids = select_candidates(state, cfg, k)
+    state.rec_meta = mark_selected(state.rec_meta, kinds, pids)
+    state.global_version = state.global_version + 1
+    return state, kinds, pids, (kinds != KIND_NONE).sum()
+
+
+def select_candidates(state: IndexState, cfg: UBISConfig, k: int):
+    """Device-side candidate pick: the top-k due ops by the driver's
+    priority (splits by length desc, then compacts, then merges by
+    length asc), ties by posting id.  Returns (kinds (k,), pids (k,))
+    int32, -1 / KIND_NONE past the due ones."""
+    split_due, merge_due, compact_due = detect(state, cfg)
+    L = 1 << 20
+    lengths = state.lengths.to(torch.int32)
+    key = torch.where(split_due, -lengths,
+                      torch.where(compact_due, L,
+                                  torch.where(merge_due, 2 * L + lengths,
+                                              3 * L))).to(torch.int32)
+    order = torch.argsort(key, stable=True)[:k]
+    due = key[order] < 3 * L
+    kinds = torch.where(split_due[order], KIND_SPLIT,
+                        torch.where(compact_due[order], KIND_COMPACT,
+                                    KIND_MERGE))
+    kinds = torch.where(due, kinds, KIND_NONE).to(torch.int32)
+    return kinds, torch.where(due, order, -1).to(torch.int32)

@@ -114,10 +114,15 @@ class UBISDriver:
     With ``cfg.use_tier``: ``tier_moves_per_tick``, the planner's batch
     width; ``tier_async``, dispatch the tick's spill/promote copies at
     tick start (overlapping the background round) and commit them at
-    tick end.  The host exact rerank of spilled candidates is always on:
-    ``tier_rerank_host=False`` raises, as does an ``obs_profile_dir``
-    (the JAX driver's profiled first tick), and ``fused_tick=True``
-    (device-side candidate selection); each belongs to a later slice.
+    tick end.  The host exact rerank of spilled candidates is always on
+    (``tier_rerank_host=False``, the cluster plane's ADC-only cold read,
+    raises).  ``fused_tick=True`` (UBIS mode only) selects and marks the
+    next batch on the device (``balance.mark_round``) instead of the
+    ``detect()`` host round-trip: the kinds/pids batch stays on the
+    device and feeds the next tick's ``background_round``; SPFresh's
+    strict triggers are noted on the host, so the flag is ignored in
+    that mode.  ``obs_profile_dir``: the first tick runs under
+    ``Obs.profile`` and writes its trace there.
     """
 
     def __init__(self, cfg: UBISConfig, seed_vectors=None, *,
@@ -131,15 +136,10 @@ class UBISDriver:
                  tier_rerank_host: bool = True, tier_async: bool = False,
                  obs: Optional[Obs] = None,
                  obs_profile_dir: Optional[str] = None):
-        for flag, what in ((fused_tick, "fused_tick=True (balance."
-                            "mark_round)"),
-                           (not tier_rerank_host, "tier_rerank_host=False "
-                            "(the ADC-only cold read)"),
-                           (obs_profile_dir is not None, "obs_profile_dir "
-                            "(the profiled first tick)")):
-            if flag:
-                raise NotImplementedError(
-                    f"{what} belongs to a later slice of the port")
+        if not tier_rerank_host:
+            raise NotImplementedError(
+                "tier_rerank_host=False (the ADC-only cold read) belongs "
+                "to a later slice of the port")
         if seed_vectors is None:
             raise ValueError("seed_vectors required (used for k-means seeds)")
         self.cfg = cfg
@@ -152,6 +152,10 @@ class UBISDriver:
         self.reassign_after_split = bool(reassign_after_split)
         self.pq_retrain_every = int(pq_retrain_every)
         self.obs = obs if obs is not None else Obs()
+        # the first tick after construction runs under a profiler capture
+        self._profile_dir = obs_profile_dir
+        self._profiled = False
+        self.fused_tick = bool(fused_tick) and cfg.is_ubis
 
         seeds = torch.as_tensor(np.asarray(seed_vectors, np.float32),
                                 device=self.device)
@@ -173,6 +177,8 @@ class UBISDriver:
         # ops marked SPLITTING/MERGING last tick, executed this tick
         self._marked: list[tuple[str, int]] = []
         self._marked_set: set[int] = set()
+        # fused_tick: the device-resident (kinds, pids) marked last tick
+        self._marked_dev = None
         # SPFresh strict-trigger candidate sets
         self._sp_split: set[int] = set()
         self._sp_merge: set[int] = set()
@@ -344,14 +350,23 @@ class UBISDriver:
         detect + mark new candidates, GC, (quant plane) re-train the PQ
         codebooks on cadence, and (cold tier) run the spill/promote
         planner."""
+        if self._profile_dir and not self._profiled:
+            self._profiled = True
+            with self.obs.profile(self._profile_dir):
+                return self._tick_impl()
+        return self._tick_impl()
+
+    def _tick_impl(self) -> TickReport:
         t0 = time.perf_counter()
         plan = None
         if self.tier is not None and self.tier_async:
             # tick-start dispatch: the copies run while the background
             # round executes; whether the round carries the heat decay is
             # known now (the batch was marked last tick)
-            self.state, plan = self.tier.dispatch(
-                self.state, decayed=bool(self._marked))
+            will_decay = (self._marked_dev is not None if self.fused_tick
+                          else bool(self._marked))
+            self.state, plan = self.tier.dispatch(self.state,
+                                                  decayed=will_decay)
         executed = self._execute_marked()
         self.stats["bg_exec_time"] += time.perf_counter() - t0
         drained = self._drain_cache() if self.cfg.is_ubis else 0
@@ -394,20 +409,27 @@ class UBISDriver:
         """Execute the whole marked batch as ONE background round; the
         only transfer back is the small ``BackgroundRound`` struct."""
         self._bg_ran = False
-        marked, self._marked = self._marked, []
-        self._marked_set.clear()
-        if not marked:
-            return 0
-        # every marked op MUST ride in this batch: a truncated op would
-        # keep its mark with nothing queued to clear it
-        B = max(self.bg_ops, len(marked), 1)
-        kinds_np = np.zeros(B, np.int32)
-        pids_np = np.full(B, -1, np.int32)
-        for i, (kind, pid) in enumerate(marked):
-            kinds_np[i] = KIND_CODES[kind]
-            pids_np[i] = pid
+        if self.fused_tick:
+            md, self._marked_dev = self._marked_dev, None
+            if md is None:
+                return 0
+            kinds, pids = md
+        else:
+            marked, self._marked = self._marked, []
+            self._marked_set.clear()
+            if not marked:
+                return 0
+            # every marked op MUST ride in this batch: a truncated op
+            # would keep its mark with nothing queued to clear it
+            B = max(self.bg_ops, len(marked), 1)
+            kinds_np = np.zeros(B, np.int32)
+            pids_np = np.full(B, -1, np.int32)
+            for i, (kind, pid) in enumerate(marked):
+                kinds_np[i] = KIND_CODES[kind]
+                pids_np[i] = pid
+            kinds, pids = self._dev(kinds_np), self._dev(pids_np)
         self.state, rr = balance.background_round(
-            self.state, self.cfg, self._dev(kinds_np), self._dev(pids_np),
+            self.state, self.cfg, kinds, pids,
             reassign=self.reassign_after_split)
         self._bg_ran = True        # the round carried the heat decay
         rr = rr.to_host()
@@ -436,6 +458,17 @@ class UBISDriver:
         return int(res.accepted.sum())
 
     def _mark_candidates(self) -> int:
+        if self.fused_tick:
+            # selection + mark on the device; only the count crosses to
+            # the host (for flush quiescence)
+            self.state, kinds, pids, n = balance.mark_round(
+                self.state, self.cfg, self.bg_ops)
+            n = int(n)
+            self._marked_dev = (kinds, pids) if n else None
+            if n:
+                self.obs.emit("bg_mark", reason="fused-device-round",
+                              marked=n)
+            return n
         lengths = self.state.lengths.cpu().numpy()
         if self.cfg.is_ubis:
             split_due, merge_due, compact_due = (
@@ -604,7 +637,7 @@ class UBISDriver:
         if self.tier is not None:
             state = self.tier.adopt(state)
         self.state = state
-        self._marked = []
+        self._marked, self._marked_dev = [], None
         self._marked_set.clear()
         return self
 

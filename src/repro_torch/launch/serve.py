@@ -197,7 +197,7 @@ class RetrievalServer:
         return self.obs.snapshot()
 
     def trace_events(self, kind: Optional[str] = None):
-        """Structured trace events (the newest ``TRACE_CAPACITY``)."""
+        """Structured trace events (the newest ``trace_capacity``)."""
         return self.obs.events(kind)
 
 

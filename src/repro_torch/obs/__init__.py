@@ -5,54 +5,53 @@ Counterpart of ``repro/obs/``:
 * :class:`~repro_torch.obs.metrics.MetricsRegistry`: counters, gauges,
   log-bucket latency histograms, the drivers' shared ``stats`` schema,
   the Prometheus text exposition and a JSON snapshot;
-* a bounded in-memory trace of events, each a dict ``{"seq", "t",
-  "kind", **fields}`` with ``t`` from ``time.perf_counter``;
+* :class:`~repro_torch.obs.trace.Tracer`: structured trace events (a
+  bounded ring buffer and an optional JSONL file sink), emitted by every
+  planner with its reason;
 * :class:`~repro_torch.obs.probe.RecallProbe`, the sampled live-recall
   probe (built by the serving engine through :meth:`Obs.make_probe`);
 * :meth:`Obs.profile`, a ``torch.profiler`` capture of a block.
 
 A driver builds its own ``Obs()`` unless one is injected; the serving
 engine reuses its index's, so one exposition covers driver internals and
-request spans.  The plane is always on (the JAX package's
-``enabled=False`` switch has no counterpart): ``Obs.enabled`` is a class
-attribute that reads ``True``, so code that asks the JAX package's
-question (the contract harness's trace audit) gets its answer.  The
+request spans.  ``Obs(enabled=False)`` keeps the stats mapping (the
+drivers need it) and turns tracing and span recording into no-ops.  The
 ``kernel_fallback`` and ``kernel_fallback_traces`` counters exist and
 read 0: on the card every kernel launches or raises, and nothing falls
-back.  The JSONL trace sink of the JAX package's tracer is not ported.
+back.
 """
 from __future__ import annotations
 
 import os
 import time
-from collections import deque
 from contextlib import contextmanager
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 from .metrics import (DRIVER_STAT_SCHEMA, GAUGE_STAT_KEYS, Counter, Gauge,
-                      Histogram, MetricsRegistry, StatsMap, parse_exposition)
+                      Histogram, MetricsRegistry, StatsMap, parse_exposition,
+                      required_series)
 from .probe import RecallProbe
+from .trace import Tracer
 
-__all__ = ["Obs", "MetricsRegistry", "RecallProbe", "Counter", "Gauge",
-           "Histogram", "StatsMap", "DRIVER_STAT_SCHEMA", "GAUGE_STAT_KEYS",
-           "parse_exposition"]
+__all__ = ["Obs", "MetricsRegistry", "Tracer", "RecallProbe", "Counter",
+           "Gauge", "Histogram", "StatsMap", "DRIVER_STAT_SCHEMA",
+           "GAUGE_STAT_KEYS", "parse_exposition", "required_series"]
 
 #: Counters every ``Obs`` registers at construction.
 FALLBACK_COUNTERS = ("kernel_fallback", "kernel_fallback_traces")
 
-#: The trace keeps the newest this many events.
-TRACE_CAPACITY = 4096
-
 
 class Obs:
-    """Metrics registry + bounded event trace (+ profiler hook)."""
+    """Metrics registry + tracer (+ profiler hook)."""
 
-    enabled = True
-
-    def __init__(self):
+    def __init__(self, *, enabled: bool = True,
+                 trace_capacity: int = 4096,
+                 trace_path: Optional[str] = None,
+                 clock: Callable[[], float] = time.perf_counter):
+        self.enabled = enabled
         self.registry = MetricsRegistry()
-        self._events: deque = deque(maxlen=TRACE_CAPACITY)
-        self._seq = 0
+        self.tracer = Tracer(capacity=trace_capacity, path=trace_path,
+                             clock=clock, enabled=enabled)
         self._profiles = 0
         for name in FALLBACK_COUNTERS:
             self.counter(name)
@@ -77,16 +76,10 @@ class Obs:
     # ---- tracing ------------------------------------------------------
 
     def emit(self, kind: str, **fields) -> None:
-        ev = {"seq": self._seq, "t": round(time.perf_counter(), 6),
-              "kind": kind}
-        ev.update(fields)
-        self._seq += 1
-        self._events.append(ev)
+        self.tracer.emit(kind, **fields)
 
     def events(self, kind: Optional[str] = None) -> List[dict]:
-        if kind is None:
-            return list(self._events)
-        return [e for e in self._events if e["kind"] == kind]
+        return self.tracer.events(kind)
 
     # ---- export -------------------------------------------------------
 

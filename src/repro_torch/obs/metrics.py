@@ -13,6 +13,7 @@ its relative error is under about 9%.
 """
 from __future__ import annotations
 
+import json
 import math
 from bisect import bisect_left
 from collections.abc import MutableMapping
@@ -245,6 +246,9 @@ class MetricsRegistry:
                 out[f"{sm.prefix}_{k}"] = sm[k]
         return out
 
+    def snapshot_json(self, **kw) -> str:
+        return json.dumps(self.snapshot(), **kw)
+
     def to_prometheus(self) -> str:
         """Prometheus text exposition (format 0.0.4 subset)."""
         lines: List[str] = []
@@ -295,3 +299,12 @@ def parse_exposition(text: str) -> Dict[str, float]:
         out[name] = float(val)      # raises on non-numeric values
     return out
 
+
+def required_series(snapshot_keys: Iterable[str],
+                    required: Iterable[str]) -> List[str]:
+    """Names in ``required`` that no snapshot/exposition key starts
+    with: empty means every required series is present."""
+    keys = list(snapshot_keys)
+    return [r for r in required
+            if not any(k == r or k.startswith(r + "_") or
+                       k.startswith(r + "{") for k in keys)]

@@ -286,15 +286,18 @@ class ServingEngine:
                 [vecs, np.zeros((B - len(reqs), vecs.shape[1]),
                                 np.float32)])
         t_fire = self.clock()
-        for r in reqs:
-            self._h_queue.record(max(t_fire - r.t_submit, 0.0))
-        self._g_fill.set(len(reqs) / B)
+        obs_on = self.obs.enabled
+        if obs_on:
+            for r in reqs:
+                self._h_queue.record(max(t_fire - r.t_submit, 0.0))
+            self._g_fill.set(len(reqs) / B)
         if self._can_overlap:
             disp = self.index.dispatch_search(vecs, reqs[0].k)
             if overlap_work is not None:
                 t_w = self.clock()
                 overlap_work()          # runs while the device searches
-                self._h_overlap.record(max(self.clock() - t_w, 0.0))
+                if obs_on:
+                    self._h_overlap.record(max(self.clock() - t_w, 0.0))
             res = self.index.collect_search(disp)
         else:
             res = self.index.search(vecs, reqs[0].k)
@@ -306,9 +309,10 @@ class ServingEngine:
                 SearchResult(ids=res.ids[i:i + 1],
                              scores=res.scores[i:i + 1],
                              seconds=now - r.t_submit), now)
-        self._h_service.record(max(now - t_fire, 0.0))
-        for r in reqs:
-            self._h_latency.record(max(now - r.t_submit, 0.0))
+        if obs_on:
+            self._h_service.record(max(now - t_fire, 0.0))
+            for r in reqs:
+                self._h_latency.record(max(now - r.t_submit, 0.0))
         if self.probe is not None:
             # shadow-execute a sampled fraction against exact() — AFTER
             # the tickets resolved, so the probe is off the hot path

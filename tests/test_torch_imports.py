@@ -7,9 +7,9 @@
 * The entry points (the drivers, ``make_index``, ``get_model``,
   ``EmbeddingServer``, ``RetrievalServer``) run on the card by default
   and raise without one unless the caller asks for the CPU; the planes
-  of later slices (the fused tick, the decode path) raise
-  ``NotImplementedError`` instead of being ignored, and the quant plane
-  (``use_pq``) and the cold tier (``use_tier``) run.
+  of later slices (the decode path) raise ``NotImplementedError``
+  instead of being ignored, and the quant plane (``use_pq``), the cold
+  tier (``use_tier``) and the fused tick run.
 * Every kernel of ``ops.KERNELS`` names a CUDA source that ``_nvcc``
   builds, and every source is built for some kernel.
 """
@@ -101,13 +101,14 @@ def test_entry_points_raise_without_cuda():
     assert SPFreshDriver(cfg, seeds, device="cpu").cfg.mode == "spfresh"
 
 
-# The case ids are the ones these cases had when the quant plane and the
-# cold tier still raised; the first two cases now check that they run.
+# The case ids are the ones these cases had when the quant plane, the
+# cold tier and the fused tick still raised; the first three cases now
+# check that they run.
 @pytest.mark.parametrize("kw,what", [
     pytest.param(dict(use_pq=True, pq_m=4), None, id="kw0-quant plane"),
     pytest.param(dict(use_pq=True, pq_m=4, use_tier=True), None,
                  id="kw1-quant plane"),
-    pytest.param(dict(fused_tick=True), "fused_tick", id="kw2-fused_tick"),
+    pytest.param(dict(fused_tick=True), None, id="kw2-fused_tick"),
     pytest.param(dict(lm="prefill"), "decode slice", id="lm-prefill"),
     pytest.param(dict(lm="decode_step"), "decode slice",
                  id="lm-decode_step"),
@@ -132,7 +133,9 @@ def test_later_slices_raise_not_implemented(kw, what):
     seeds = np.random.default_rng(0).normal(size=(60, 8)).astype(np.float32)
     if what is None:
         drv = UBISDriver(cfg, seeds, device="cpu", fused_tick=fused)
-        assert drv.cfg.use_pq and drv.state.codes.shape == (64, 4, 32)
+        assert drv.fused_tick == fused
+        assert drv.state.codes.shape == ((64, 4, 32) if cfg.use_pq
+                                         else (64, 1, 32))
         assert (drv.tier is not None) == cfg.use_tier
         return
     with pytest.raises(NotImplementedError, match=what):
@@ -157,7 +160,7 @@ def test_every_kernel_source_is_built():
 
 def test_unknown_engine_raises():
     cfg = UBISConfig(dim=8, max_postings=64, capacity=32, l_min=4, l_max=24)
-    for engine in ("spann", "freshdiskann", "ubis-sharded", "ubis-cluster"):
+    for engine in ("ubis-sharded", "ubis-cluster"):
         with pytest.raises(ValueError, match="not ported"):
             make_index(engine, cfg, np.zeros((60, 8), np.float32),
                        device="cpu")

@@ -5,10 +5,14 @@ against the JAX driver: both packages get the same seed vectors, the
 same k-means initial indices (the JAX draw, injected into the port),
 the same knobs and the stream of ``tests/test_torch_driver.py``, and must
 end with the same live ids and the same foreground and background
-counts.  The two knob values the port does not implement raise, and the
-port's observability plane answers the contract harness's ``enabled``
-question, so the harness's trace audit covers port engines.
+counts.  The knob value the port does not implement
+(``tier_rerank_host=False``) raises, ``obs_profile_dir`` captures the
+first tick's trace, and the port's observability plane answers the
+contract harness's ``enabled`` question, so the harness's trace audit
+covers port engines.
 """
+import os
+
 import numpy as np
 import pytest
 import jax
@@ -76,12 +80,25 @@ def test_knobs_change_the_port_program():
         lag2.stats["bg_gc"], lag16.stats["bg_gc"])
 
 
-@pytest.mark.parametrize("kw", [dict(tier_rerank_host=False),
-                                dict(obs_profile_dir="profiles")])
+@pytest.mark.parametrize("kw", [dict(tier_rerank_host=False)])
 def test_unported_knob_values_raise(kw):
     tcfg, seeds, init = _seeds_and_init("ubis")
     with pytest.raises(NotImplementedError):
         make_index("ubis", tcfg, seeds, device="cpu", kmeans_init=init, **kw)
+
+
+def test_obs_profile_dir_traces_the_first_tick_only(tmp_path):
+    tcfg, seeds, init = _seeds_and_init("ubis")
+    td = make_index("ubis", tcfg, seeds, device="cpu", kmeans_init=init,
+                    obs_profile_dir=str(tmp_path), **DRIVER_KW)
+    td.insert(seeds[:300], np.arange(300), tick_between=False)
+    td.tick()
+    traces = os.listdir(tmp_path)
+    assert len(traces) == 1 and traces[0].endswith(".json"), traces
+    assert '"traceEvents"' in (tmp_path / traces[0]).read_text()
+    td.tick()
+    td.flush(max_ticks=5)
+    assert os.listdir(tmp_path) == traces
 
 
 def test_unported_knob_defaults_are_accepted():
