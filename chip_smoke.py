@@ -94,12 +94,13 @@ Phases, in order (any failure exits non-zero before the last line):
    JSONL line per event; insert minus delete events equal to the live
    count); then one more identical step on both drivers, its tick
    profiled fused against unfused (wall, device busy share).  Every
-   engine of ``list_engines()`` (ubis, spfresh, spann, freshdiskann)
+   engine of ``list_engines()`` (ubis, spfresh, spann, freshdiskann,
+   ubis-sharded on its default mesh: one shard on a one-card machine)
    through one kwargs dict at d = 128 (``max_postings`` 65,504,
    ``capacity`` 96, ``nprobe`` 32; the graph's registry defaults), over
    a ``DriftingVectorStream`` of 400 clusters: the cluster engines 20k
-   seed vectors and 10 batches of 20k inserts and 10k deletes,
-   freshdiskann (host-Python inserts) 2,048 and 8 batches of 2,048 and
+   seed vectors and 5 batches of 20k inserts and 10k deletes,
+   freshdiskann (host-Python inserts) 2,048 and 2 batches of 2,048 and
    1,024; each batch ticks until quiescent (at most 64 ticks), then a
    256-query search at k=10 and ``exact``.
    Gates: the contract harness's recall floors, ``live_count()`` =
@@ -108,6 +109,27 @@ Phases, in order (any failure exits non-zero before the last line):
    seconds by phase, recall and ``memory_bytes``.  Then the sequential
    single-posting ops against one ``background_round`` on a marked
    state at d = 128: the same live map, the invariants on both.
+   Phase 3h, the sharded plane: ``make_index("ubis-sharded", ...)`` on
+   S = 4 logical shards of the card (``make_mesh((1, 4))``, 16,376
+   postings a shard).  3h-1: the float path's configuration and data,
+   loaded through the sharded insert rounds, then 3 streaming steps;
+   3h-2: the quant path's final state adopted (``load_snapshot``), then
+   2 steps; 3h-3: figskew's stream (16 clusters, Zipf 1.5 popularity,
+   ``benchmarks/figures.py:293-383``) at d = 128, 200,000 vectors in 10
+   flushed batches, uniform with rebalance on, Zipf on, Zipf off and
+   uniform off (each run's recall also at nprobe 128, not gated).
+   Gates: recall@10 >= 0.9 against the sharded ``exact`` at every step,
+   ``live_count()`` against the stats, the invariants (and the codes
+   invariant) on ``snapshot()``, the replicas identical after the load
+   and every step, every tick's pressure rows summing to the live
+   postings' vectors, the sharded ``exact`` equal to the single-device
+   ``brute_force`` of the snapshot (a differing id only at a near-tie),
+   the path's kernels launched (``pq_scan_topk`` and ``rerank_topk``
+   under the ownership mask), and each of them held against its plain
+   version on the path's own inputs at their first few shapes
+   (``held_on_path``: the shard-local pools, the ownership masks); Zipf
+   on: max/min occupancy <= 1.5, migrations > 0, recall@10 within 2
+   points of the uniform run (the off runs are reported, not gated).
 4. Each kernel timed (CUDA events, median of 20 runs after warm-up) on
    its path's own inputs, beside its plain version, its bound and, where
    one PyTorch call computes the same product, that call (``addmm`` /
@@ -988,17 +1010,18 @@ def main_path(dev, *, n: int, dim: int, max_postings: int,
               queries: int, chunk: int, seed: int, round_size: int,
               bg_ops: int, quant: bool = False, pq_retrain_every: int = 32,
               tier_hot_max: int = 0, data=None, gate: bool = True,
-              index_kw=None, log=say):
+              index_kw=None, engine: str = "ubis", hook=None, log=say):
     """Drive ``make_index("ubis", ...)`` through load + streaming steps,
     on the float plane or (``quant``) the quant plane, with the cold tier
     when ``tier_hot_max`` > 0 (``tier_async``, 256 moves per tick; at
     least ``TIER_SHARE`` of the live postings spilled after the load);
     ``data``: keyword arguments of ``Stream``; ``gate=False`` reports
     recall@10 without failing below 0.9; ``index_kw``: more keyword
-    arguments of ``make_index`` (``fused_tick``, ``obs``).  Returns
-    (driver, last queries, per-phase seconds, recalls, stream)."""
+    arguments of ``make_index`` (``fused_tick``, ``obs``, ``mesh``);
+    ``engine``: ``ubis`` or ``ubis-sharded``; ``hook(drv, stage)`` runs
+    after the build, the load and each step.  Returns (driver, last queries,
+    per-phase seconds, recalls, stream)."""
     from repro_torch.api import make_index
-    from repro_torch.core import metrics
     from repro_torch.core.invariants import check_invariants, check_residency
     from repro_torch.core.types import UBISConfig
 
@@ -1020,7 +1043,7 @@ def main_path(dev, *, n: int, dim: int, max_postings: int,
     secs["data"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    drv = make_index("ubis", cfg, base, device=dev, seed=seed,
+    drv = make_index(engine, cfg, base, device=dev, seed=seed,
                      round_size=round_size, bg_ops_per_round=bg_ops,
                      drain_per_tick=round_size,
                      pq_retrain_every=pq_retrain_every,
@@ -1030,6 +1053,8 @@ def main_path(dev, *, n: int, dim: int, max_postings: int,
     secs["build"] = time.perf_counter() - t
     if tier:
         instrument_tier(drv.tier)
+    if hook is not None:
+        hook(drv, "built")
 
     t = time.perf_counter()
     ticks = 0
@@ -1039,7 +1064,7 @@ def main_path(dev, *, n: int, dim: int, max_postings: int,
             ticks += 1
             r = drv.tick()
             if (r.executed == 0 and r.marked == 0 and r.spilled == 0
-                    and r.promoted == 0):
+                    and r.promoted == 0 and r.migrated == 0):
                 break
     sync()
     secs["load"] = time.perf_counter() - t
@@ -1068,9 +1093,45 @@ def main_path(dev, *, n: int, dim: int, max_postings: int,
             fail(f"only {100 * share:.2f}% of the live postings spilled "
                  "after the load")
 
-    next_id, oldest = n, 0
+    if hook is not None:
+        hook(drv, "load")
+    q, recalls = stream_steps(drv, stream, secs, steps=steps, fresh=fresh,
+                              dels=dels, queries=queries, next_id=n,
+                              oldest=0, gate=gate, hook=hook, log=log)
+    live = drv.live_count()
+    want = int(drv.stats["inserted"] - drv.stats["deleted"])
+    if live != want:
+        fail(f"live_count {live} != inserted - deleted {want}")
+    # the sharded rounds leave the free stack fail-safe EMPTY: the
+    # invariants read a snapshot, which rebuilds and checks it
+    check_invariants(drv.snapshot() if engine == "ubis-sharded"
+                     else drv.state, cfg)   # with use_pq: codes == encode
+    if tier:
+        check_residency(drv.state, cfg, drv.tier.pool)
+    if quant and drv.stats["pq_retrains"] < 1:
+        fail("the quant path never re-trained its codebooks")
+    return drv, q, secs, recalls, stream
+
+
+def stream_steps(drv, stream, secs, *, steps: int, fresh: int, dels: int,
+                 queries: int, next_id: int, oldest: int, gate: bool = True,
+                 hook=None, log=say):
+    """Streaming steps on ``drv``: each drifts the stream, inserts
+    ``fresh`` vectors (ids from ``next_id``), deletes the ``dels`` oldest
+    (ids from ``oldest``), ticks, searches ``queries`` at k=10 and holds
+    the result against ``exact`` (recall@10 gated >= 0.9 unless ``gate``
+    is false).  Adds the seconds to ``secs``; ``hook(drv, "step N")``
+    runs after each step.  Returns (last queries, recalls); the next
+    fresh id and the oldest live id are left on ``stream``."""
+    from repro_torch.core import metrics
+
+    def sync():
+        if drv.device.type == "cuda":
+            torch.cuda.synchronize()
+
     recalls = []
-    secs.update(insert=0.0, delete=0.0, tick=0.0, search=0.0, exact=0.0)
+    for key in ("insert", "delete", "tick", "search", "exact"):
+        secs.setdefault(key, 0.0)
     for step in range(steps):
         stream.drift(0.05)
         t = time.perf_counter()
@@ -1101,19 +1162,13 @@ def main_path(dev, *, n: int, dim: int, max_postings: int,
                else "(not gated)"))
         if gate and not rec >= 0.9:
             fail(f"recall@10 {rec:.4f} < 0.9 at step {step}")
+        if hook is not None:
+            hook(drv, f"step {step}")
     if found.shape != (queries, 10) or not np.isfinite(
             drv.exact(q[:4], 10).scores).all():
         fail("search/exact returned the wrong shape or non-finite scores")
-    live = drv.live_count()
-    want = int(drv.stats["inserted"] - drv.stats["deleted"])
-    if live != want:
-        fail(f"live_count {live} != inserted - deleted {want}")
-    check_invariants(drv.state, cfg)       # with use_pq: codes == encode
-    if tier:
-        check_residency(drv.state, cfg, drv.tier.pool)
-    if quant and drv.stats["pq_retrains"] < 1:
-        fail("the quant path never re-trained its codebooks")
-    return drv, q, secs, recalls, stream
+    stream.next_id, stream.oldest = next_id, oldest   # where a caller resumes
+    return q, recalls
 
 
 def hard_recall(drv, stream, queries: int,
@@ -1405,11 +1460,14 @@ def serve_path(dev, ops, ref, *, seed: int, reduced: bool = False,
 #: phase 3g's engine stream, per engine: (seed vectors, batches, inserts
 #: and deletes a batch).  The graph baseline's insert path is host Python
 #: (RobustPrune and its back-edges, about 4 ms an insert on the card's
-#: host at a few thousand nodes), so its stream is a tenth as deep.
-ENGINE_DEPTH = {"ubis": (20000, 10, 20000, 10000),
-                "spfresh": (20000, 10, 20000, 10000),
-                "spann": (20000, 10, 20000, 10000),
-                "freshdiskann": (2048, 8, 2048, 1024)}
+#: host at a few thousand nodes), so its stream is a tenth as wide.  The
+#: batches were cut from 10 (freshdiskann 8) to keep the whole run within
+#: its budget beside phase 3h.
+ENGINE_DEPTH = {"ubis": (20000, 5, 20000, 10000),
+                "spfresh": (20000, 5, 20000, 10000),
+                "ubis-sharded": (20000, 5, 20000, 10000),
+                "spann": (20000, 5, 20000, 10000),
+                "freshdiskann": (2048, 2, 2048, 1024)}
 #: the stream's clusters: with nprobe = 32 the probes must cover a
 #: query's neighbours (figengines' 32 clusters would put a few thousand
 #: live vectors, tens of postings, in each)
@@ -1417,7 +1475,7 @@ ENGINE_CLUSTERS = 400
 #: recall@10 floors against each engine's own exact(), those of the
 #: contract harness (tests/contract_harness.py)
 RECALL_FLOOR = {"ubis": 0.9, "spfresh": 0.9, "freshdiskann": 0.15,
-                "spann": 0.8}
+                "spann": 0.8, "ubis-sharded": 0.9}
 #: phase 3g's index configuration: the float path's
 FRONT_CFG = dict(dim=128, max_postings=65504, capacity=96, l_min=10,
                  l_max=80, balance_factor=0.15, nprobe=32,
@@ -1456,8 +1514,9 @@ def same_live_map(a, b) -> bool:
 
 def window(fn) -> tuple:
     """Run ``fn`` under ``torch.profiler``: (wall seconds, device busy
-    seconds, [(kernel, device ms, calls)] by time).  Device-side events
-    only: an aten op's own entry repeats the time of its kernels."""
+    seconds or None where no device event reached ``key_averages``,
+    [(kernel, device ms, calls)] by time).  Device-side events only: an
+    aten op's own entry repeats the time of its kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     def dev_us(ev):
@@ -1474,7 +1533,14 @@ def window(fn) -> tuple:
                    for ev in prof.key_averages()
                    if str(ev.device_type).endswith("CUDA")
                    and dev_us(ev) > 0), key=lambda r: -r[1])
-    return wall, sum(r[1] for r in rows) / 1e3, rows, prof
+    busy = sum(r[1] for r in rows) / 1e3 if rows else None
+    return wall, busy, rows, prof
+
+
+def busy_text(wall: float, busy) -> str:
+    if busy is None:
+        return "device busy not measured (no profiler events)"
+    return f"device busy {busy:.4f} s ({100 * busy / wall:.1f}%)"
 
 
 def trace_audit(path: str, obs, live: int, log=say) -> None:
@@ -1544,7 +1610,7 @@ def fused_path(dev, ops, fdrv, fsecs, seed: int, log=say) -> dict:
         wall, busy, rows, _ = window(lambda: box.append(d.tick()))
         r = box[0]
         log(f"  one tick after one more step, {label}: wall {wall:.4f} s, "
-            f"device busy {busy:.4f} s ({100 * busy / wall:.1f}%), "
+            f"{busy_text(wall, busy)}, "
             f"executed {r.executed}, drained {r.drained}, marked "
             f"{r.marked}; top: " + ", ".join(
                 f"{k[:40]} {ms:.3f} ms" for k, ms, _ in rows[:3]))
@@ -1554,12 +1620,12 @@ def fused_path(dev, ops, fdrv, fsecs, seed: int, log=say) -> dict:
 
 
 def settle(idx, most: int = 64) -> int:
-    """Tick until quiescent (no op executed or marked), at most ``most``
-    ticks, as the float path's load does after each chunk; the build-once
-    and graph engines' ticks do nothing and stop at once."""
+    """Tick until quiescent (no op executed, marked or migrated), at most
+    ``most`` ticks, as the float path's load does after each chunk; the
+    build-once and graph engines' ticks do nothing and stop at once."""
     for i in range(most):
         r = idx.tick()
-        if r.executed == 0 and r.marked == 0:
+        if r.executed == 0 and r.marked == 0 and r.migrated == 0:
             return i + 1
     return most
 
@@ -1746,6 +1812,408 @@ def sequential_checks(dev, ops, seed: int, log=say) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3h: the sharded plane, S logical shards of the card
+# ---------------------------------------------------------------------------
+
+#: model-axis shards of phase 3h (16,376 postings a shard at 65,504)
+SHARDS = 4
+#: 3h-1/3h-2's ``migrate_per_tick``: 1M seed vectors seed 16,376 postings,
+#: every one on shard 0 (contiguous pids), so shard 0 starts saturated
+#: and thousands of postings must move before its splits can allocate
+SHARD_MIGRATE = 512
+#: 3h-3, figskew's stream at d = 128: (clusters, Zipf exponent, vectors,
+#: batches, ``migrate_per_tick``, ticks a flush at most, the wider nprobe
+#: of the ungated recall)
+SKEW = dict(clusters=16, zipf=1.5, n=200_000, batches=10, migrate=256,
+            flush=32, wide=128)
+#: the kernels the sharded planes must launch
+SHARD_KERNELS = {"float": ("centroid_score", "centroid_topk",
+                           "posting_scan_topk", "posting_scan"),
+                 "quant": ("centroid_score", "centroid_topk",
+                           "pq_scan_topk", "rerank_topk", "kmeans_assign")}
+
+
+#: shapes a kernel that ``held_on_path`` holds against its plain version:
+#: the first call at each new shape, up to this many shapes a kernel
+HELD_SHAPES = 8
+#: rows of a ``kmeans_assign`` call that ``held_on_path`` compares (rows
+#: are independent; a full re-encode's plain version would score every
+#: row against every codeword at once)
+HELD_ASSIGN_ROWS = 8192
+
+
+def _rescored_picks(name, got, score_of, label) -> None:
+    """A top-k kernel's picks rescored by the plain arithmetic: each pick
+    with a real score (< BIG/2) scores what the kernel says, within the
+    tolerance, and no real pick repeats."""
+    s, i = got[0], got[1].long()
+    real = s < 5e29
+    again = torch.where(real, score_of(torch.where(real, i, 0)), s)
+    require_close(f"{name} picks [{label}]", s, again)
+    fill = -1 - torch.arange(i.shape[1], device=i.device)[None, :]
+    srt = torch.where(real, i, fill).sort(-1).values
+    if (srt.diff(dim=-1) == 0).any():
+        fail(f"{name} [{label}]: the kernel returned a duplicate id")
+
+
+def _hold(name, ref, b, got, want) -> str:
+    """``got`` (the kernel) against ``want`` (the plain version) on the
+    bound arguments ``b`` of one ``ops`` call; returns what was held."""
+    a = b.arguments
+    shapes = "x".join(str(tuple(v.shape)) for v in a.values()
+                      if torch.is_tensor(v))
+    label = shapes + (f" k={a['k']}" if "k" in a else "")
+    if name in ("centroid_score", "posting_scan"):
+        require_close(f"{name} [{label}]", got, want)
+        return label
+    if name == "pq_scan_topk":
+        require_exact(f"{name} [{label}]", got, want)
+        ok = a.get("qp_ok")
+        return label + ("" if ok is None else
+                        f", qp_ok {float(ok.float().mean()):.3f} set")
+    require_close(f"{name} [{label}]", got[0], want[0])
+    q = a["q"]
+    if name == "centroid_topk":
+        c = a["c"]
+        vis = a.get("vis")
+        full = ref.centroid_score(q, c, torch.ones(
+            c.shape[0], dtype=torch.bool, device=c.device) if vis is None
+            else vis)
+        _rescored_picks(name, got, lambda i: torch.gather(full, 1, i), label)
+        return label
+    vec = a["vectors"]
+    M, C, d = vec.shape
+    flat = vec.reshape(M * C, d)
+
+    def plain_score(i):
+        v = flat[i]
+        return (v * v).sum(-1) - 2 * torch.einsum("qd,qkd->qk", q, v)
+    if name == "posting_scan_topk":
+        probe = a["probe"].long()
+        ok = a.get("qp_ok")
+        ok = torch.ones(probe.shape, dtype=torch.bool, device=q.device) \
+            if ok is None else ok.bool()
+        vis = (a["slot_valid"] & a["vis"][:, None]).reshape(-1)
+
+        def score_of(i):
+            # a pick lies in a probed posting the query owns, in a valid slot
+            owned = ((probe[:, None, :] == (i // C)[:, :, None])
+                     & ok[:, None, :]).any(-1)
+            return torch.where(owned & vis[i], plain_score(i), 1e30)
+        _rescored_picks(name, got, score_of, label)
+        return label + f", qp_ok {float(ok.float().mean()):.3f} set"
+    # rerank_topk: a pick is one of the ADC stage's candidates, rescored
+    # as the plain version rescores it (a spilled posting keeps its ADC
+    # score)
+    cand, adc = a["cand"].long(), a["adc"].float()
+    spilled = a["tier_spilled"]
+
+    def score_of(i):
+        hit = cand[:, None, :] == i[:, :, None]
+        pos = hit.int().argmax(-1)
+        ad = torch.gather(adc, 1, pos)
+        s = torch.where(spilled[i // C], ad, plain_score(i))
+        return torch.where(hit.any(-1) & (ad < 5e29), s, 1e30)
+    _rescored_picks(name, got, score_of, label)
+    return label
+
+
+@contextmanager
+def held_on_path(ops, ref, names, log=say):
+    """While the block runs, the first call at each new shape (up to
+    ``HELD_SHAPES`` a kernel) that the path makes through ``ops`` to a
+    kernel in ``names`` is held against the wrapper's plain version on
+    the same tensors before the path sees its result: the path's own
+    shapes and masks (the shard-local pools, the ownership masks).  The
+    kernel's launch is the path's and counts; the plain version launches
+    nothing.  On exit, fails unless every kernel of ``names`` was held at
+    least once; prints what was held."""
+    import inspect
+    held = {n: [] for n in names}
+    saved = {n: getattr(ops, n) for n in names}
+
+    def plain(fn, *args, **kw):
+        with mock.patch.object(ops, "_on_card", lambda t: False):
+            return fn(*args, **kw)
+
+    def wrap(name, fn):
+        sig = inspect.signature(fn)
+
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            b = sig.bind(*args, **kw)
+            key = tuple((k, tuple(v.shape)) if torch.is_tensor(v) else (k, v)
+                        for k, v in b.arguments.items())
+            seen = held[name]
+            if len(seen) >= HELD_SHAPES or key in (s[0] for s in seen):
+                return out
+            if name == "kmeans_assign":
+                pts, cen, msk = (b.arguments["points"],
+                                 b.arguments["centroids"],
+                                 b.arguments.get("mask"))
+                n = min(pts.shape[-2], HELD_ASSIGN_ROWS)
+                sub = (pts[..., :n, :], cen, None if msk is None
+                       else msk[:n])
+                want = plain(fn, *sub)
+                g = (out[0][..., :n], out[1][..., :n])
+                p3, c3 = (sub[0] if pts.dim() == 3 else sub[0][None],
+                          cen if cen.dim() == 3 else cen[None])
+                p3 = p3[torch.arange(c3.shape[0]) % p3.shape[0]]
+                cf = c3.float()
+                full = ((cf * cf).sum(-1)[:, None, :]
+                        - 2.0 * torch.bmm(p3.float(), cf.transpose(1, 2)))
+                if pts.dim() == 2:
+                    full = full[0]
+                label = f"{tuple(pts.shape)}x{tuple(cen.shape)}, {n} rows"
+                check_assign(f"kmeans_assign [{label}]", g, want, full)
+                del full
+            else:
+                want = plain(fn, *args, **kw)
+                label = _hold(name, ref, b, out, want)
+            del want
+            seen.append((key, label))
+            return out
+        return call
+
+    with mock.patch.multiple(ops, **{n: wrap(n, f)
+                                     for n, f in saved.items()}):
+        yield held
+    for n, seen in held.items():
+        if not seen:
+            fail(f"kernel {n} was never held against its plain version on "
+                 "this path's inputs")
+        log(f"  {n} held against its plain version on the path's inputs: "
+            + "; ".join(lbl for _, lbl in seen))
+
+
+def shard_mesh(dev):
+    from repro_torch.distributed import make_mesh
+    return make_mesh((1, SHARDS), ("data", "model"), device=dev)
+
+
+def audit_pressure(drv) -> None:
+    """Record, at every background program, the pressure rows' live
+    vectors beside the live postings' total at that moment
+    (``drv.pressure_audit``)."""
+    drv.pressure_audit = []
+    inner = drv.exec_background
+
+    def run():
+        ex, gc, press = inner()
+        drv.pressure_audit.append((int(press[:, 3].sum()),
+                                   int(drv.state.live_vector_count())))
+        return ex, gc, press
+    drv.exec_background = run
+
+
+def shard_hook(log=say):
+    """main_path's hook for a sharded driver: the replicas identical and
+    the pressure rows equal to the live postings' vectors at every tick
+    so far; prints the occupancy and the migrations."""
+    def hook(drv, stage):
+        if stage == "built":
+            audit_pressure(drv)
+            return
+        drv.check_replicas()
+        bad = [a for a in drv.pressure_audit if a[0] != a[1]]
+        if bad:
+            fail(f"pressure rows disagree with the live postings {stage}: "
+                 f"{bad[:3]}")
+        n = len(drv.pressure_audit)
+        drv.pressure_audit.clear()
+        log(f"  {stage}: replicas identical; {n} ticks' pressure rows = "
+            f"live postings' vectors; occupancy "
+            f"{drv.shard_occupancy().tolist()}, migrated "
+            f"{drv.stats['migrated']:.0f}, rejected "
+            f"{drv.stats['rejected']:.0f}")
+    return hook
+
+
+def exact_against_brute_force(drv, q_np, log=say) -> None:
+    """The sharded ``exact`` against the single-device ``brute_force`` of
+    the snapshot on the same queries (32 a chunk): equal ids, or at a
+    differing position scores within the tolerance (a near-tie)."""
+    from repro_torch.core.search import brute_force
+    snap = drv.snapshot()
+    got = drv.exact(q_np, 10)
+    ids, scores = [], []
+    for off in range(0, len(q_np), 32):
+        f, s = brute_force(snap, drv.cfg, torch.as_tensor(
+            q_np[off:off + 32], device=drv.device), 10)
+        ids.append(f.cpu().numpy())
+        scores.append(s.cpu().numpy())
+    ids, scores = np.concatenate(ids), np.concatenate(scores)
+    del snap
+    torch.cuda.empty_cache()
+    diff = got.ids != ids
+    tol = TOL * score_scale(torch.from_numpy(scores))
+    gap = float(np.abs(got.scores - scores)[diff].max()) if diff.any() \
+        else 0.0
+    if diff.any() and not gap <= tol:
+        fail(f"sharded exact differs from brute_force at {int(diff.sum())} "
+             f"positions, score gap {gap:.3g} > {tol:.3g}")
+    log(f"  sharded exact vs single-device brute_force of the snapshot: "
+        f"{int(diff.sum())} of {diff.size} ids differ (near-ties, score gap "
+        f"{gap:.3g} <= {tol:.3g}); max score err "
+        f"{float(np.abs(got.scores - scores).max()):.3g}")
+
+
+def sharded_path(dev, ops, qpath, seed: int, log=say):
+    """Phase 3h-1 and 3h-2.  Returns (launches, the float driver, its
+    stream, per-phase seconds)."""
+    from repro_torch.api import make_index
+    from repro_torch.core.invariants import check_invariants
+    from repro_torch.kernels import ref
+    mesh = shard_mesh(dev)
+    launches = {}
+
+    def need(label, launched):
+        for name in SHARD_KERNELS[label]:
+            if launched[name] <= 0:
+                fail(f"kernel {name} was never launched on the sharded "
+                     f"{label} path")
+        for k, v in launched.items():
+            launches[k] = launches.get(k, 0) + v
+
+    log(f"  3h-1: float, 1,000,000 x 128-d, {SHARDS} shards, "
+        f"migrate_per_tick {SHARD_MIGRATE}")
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    with held_on_path(ops, ref, SHARD_KERNELS["float"], log):
+        drv, q, secs, recalls, stream = main_path(
+            dev, n=1_000_000, dim=128, max_postings=65504,
+            cache_capacity=4096, steps=3, fresh=20000, dels=10000,
+            queries=256, chunk=20000, seed=seed, round_size=2048, bg_ops=64,
+            engine="ubis-sharded", hook=shard_hook(log), log=log,
+            index_kw=dict(mesh=mesh, migrate_per_tick=SHARD_MIGRATE))
+    launched = ops.launch_counts()
+    log(f"  seconds per phase: "
+        f"{json.dumps({k: round(v, 3) for k, v in secs.items()})}")
+    log(f"  launches on the sharded float path: {json.dumps(launched)}")
+    need("float", launched)
+    exact_against_brute_force(drv, q, log)
+    log(f"  recall@10 per step (gated >= 0.9): {recalls}; live "
+        f"{drv.live_count()}; migrated {drv.stats['migrated']:.0f}; "
+        f"pressure rows {drv.shard_pressure().tolist()}; 3h-1 "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    qdrv, qstream = qpath
+    log(f"  3h-2: the quant path's state adopted on {SHARDS} shards "
+        "(load_snapshot), 2 steps")
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    sq = make_index("ubis-sharded", qdrv.cfg, qstream.draw(1000), device=dev,
+                    seed=seed, mesh=mesh, round_size=2048,
+                    bg_ops_per_round=64, drain_per_tick=2048,
+                    migrate_per_tick=SHARD_MIGRATE)
+    audit_pressure(sq)
+    sq.load_snapshot(qdrv.snapshot())
+    live0 = sq.live_count()
+    shard_hook(log)(sq, "adopted")
+    qsecs = {}
+    with held_on_path(ops, ref, SHARD_KERNELS["quant"], log):
+        _, qrecalls = stream_steps(sq, qstream, qsecs, steps=2, fresh=20000,
+                                   dels=10000, queries=256,
+                                   next_id=qstream.next_id,
+                                   oldest=qstream.oldest,
+                                   hook=shard_hook(log), log=log)
+    launched = ops.launch_counts()
+    log(f"  seconds per phase: "
+        f"{json.dumps({k: round(v, 3) for k, v in qsecs.items()})}")
+    log(f"  launches on the sharded quant path: {json.dumps(launched)}")
+    need("quant", launched)
+    want = live0 + int(sq.stats["inserted"] - sq.stats["deleted"])
+    if sq.live_count() != want:
+        fail(f"sharded quant live_count {sq.live_count()} != {want}")
+    check_invariants(sq.snapshot(), sq.cfg)     # with the codes invariant
+    log(f"  recall@10 per step (gated >= 0.9): {qrecalls}; live "
+        f"{sq.live_count()}; migrated {sq.stats['migrated']:.0f}; "
+        f"invariants and codes hold; 3h-2 {time.perf_counter() - t0:.1f} s")
+    del sq
+    torch.cuda.empty_cache()
+    return launches, drv, stream, secs
+
+
+def skew_runs(dev, ops, seed: int, log=say) -> dict:
+    """Phase 3h-3: figskew's three runs at d = 128 on ``SHARDS`` shards;
+    each batch inserted, then flushed.  A fourth, uniform with rebalance
+    off, and each run's recall at nprobe ``SKEW["wide"]`` beside the
+    gated nprobe (reported, not gated) tell a recall lost to migration
+    from one lost to the stream.  Returns the launches."""
+    from repro_torch.api import make_index
+    from repro_torch.core import metrics
+    from repro_torch.core.types import UBISConfig
+    mesh = shard_mesh(dev)
+    cfg = UBISConfig(dim=128, max_postings=65504, capacity=96, l_min=10,
+                     l_max=80, nprobe=32, cache_capacity=4096,
+                     max_ids=1 << 21)
+    K, per = SKEW["clusters"], SKEW["n"] // SKEW["batches"]
+    rng = np.random.default_rng(seed + 13)
+    cents = (rng.standard_normal((K, 128)) * 5).astype(np.float32)
+    queries = (cents[rng.integers(0, K, 256)]
+               + rng.standard_normal((256, 128))).astype(np.float32)
+
+    def draw(kind, n):
+        if kind == "uniform":
+            a = rng.integers(0, K, n)
+        else:
+            w = 1.0 / (np.arange(K) + 1) ** SKEW["zipf"]
+            a = rng.choice(K, size=n, p=w / w.sum())
+        return (cents[a] + rng.standard_normal((n, 128))).astype(np.float32)
+
+    ops.reset_launch_counts()
+    res = {}
+    for kind, reb in (("uniform", True), ("zipf", True), ("zipf", False),
+                      ("uniform", False)):
+        t0 = time.perf_counter()
+        batches = [draw(kind, per) for _ in range(SKEW["batches"])]
+        drv = make_index("ubis-sharded", cfg, batches[0], device=dev,
+                         seed=seed, mesh=mesh, round_size=2048,
+                         bg_ops_per_round=64, drain_per_tick=2048,
+                         migrate_per_tick=SKEW["migrate"], rebalance=reb)
+        audit_pressure(drv)
+        ticks = 0
+        for bi, b in enumerate(batches):
+            drv.insert(b, np.arange(bi * per, (bi + 1) * per))
+            ticks += drv.flush(max_ticks=SKEW["flush"])
+        shard_hook(lambda m: None)(drv, f"{kind}/{reb}")
+        if drv.live_count() != int(drv.stats["inserted"]):
+            fail(f"skew {kind}: live_count {drv.live_count()} != inserted "
+                 f"{drv.stats['inserted']:.0f}")
+        truth = drv.exact(queries, 10).ids
+        rec = metrics.recall_at_k(drv.search(queries, 10).ids, truth)
+        wide = metrics.recall_at_k(
+            drv.search(queries, 10, nprobe=SKEW["wide"]).ids, truth)
+        spread = metrics.occupancy_spread(drv.shard_occupancy())
+        name = f"{kind}/{'on' if reb else 'off'}"
+        res[name] = dict(recall=rec, recall_wide=wide,
+                         migrated=int(drv.stats["migrated"]),
+                         rejected=int(drv.stats["rejected"]), ticks=ticks,
+                         occupancy=drv.shard_occupancy().tolist(),
+                         seconds=time.perf_counter() - t0, **spread)
+        log(f"  3h-3 {name}: {json.dumps(res[name])}")
+        del drv
+        torch.cuda.empty_cache()
+    z, u = res["zipf/on"], res["uniform/on"]
+    if not z["occ_ratio"] <= 1.5:
+        fail(f"zipf/on max/min occupancy {z['occ_ratio']:.3f} > 1.5")
+    if not z["migrated"] > 0:
+        fail("zipf/on migrated nothing")
+    if not z["recall"] >= u["recall"] - 0.02:
+        fail(f"zipf/on recall@10 {z['recall']:.4f} more than 2 points under "
+             f"uniform/on's {u['recall']:.4f}")
+    log(f"  3h-3 gates: zipf/on max/min {z['occ_ratio']:.3f} <= 1.5, "
+        f"migrated {z['migrated']}, recall@10 {z['recall']:.4f} vs uniform "
+        f"{u['recall']:.4f} (zipf/off, not gated: max/min "
+        f"{res['zipf/off']['occ_ratio']:.3f})")
+    log(f"  3h-3 recall@10 at nprobe {cfg.nprobe} / {SKEW['wide']} (not "
+        "gated): " + ", ".join(f"{n} {r['recall']:.4f} / "
+                               f"{r['recall_wide']:.4f}"
+                               for n, r in res.items()))
+    return ops.launch_counts()
+
+
+# ---------------------------------------------------------------------------
 # phase 4: timing on the main path's inputs
 # ---------------------------------------------------------------------------
 
@@ -1765,34 +2233,66 @@ def median_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return float(np.median(times))
 
 
-def device_kernels(fn, reps: int = 20) -> dict:
+#: profiler sessions ``device_kernels`` opens before it gives up on a call
+#: whose device events never reach ``key_averages``
+PROFILE_TRIES = 6
+#: sessions that came back short of device events, calls given up on, and
+#: the first few shortfalls (kernel, events seen, calls made)
+PROFILE_MISSES = {"retried": 0, "not_measured": 0, "short": []}
+
+
+def device_kernels(fn, reps: int = 20, kernel: str | None = None) -> dict:
     """Device kernel name -> mean device ms a call of ``fn`` (``reps``
     calls under ``torch.profiler``): the time on the card alone, where
     ``median_ms`` also holds the host's launch of a short kernel, and a
-    kernel apart from a wrapper's elementwise passes."""
+    kernel apart from a wrapper's elementwise passes.  A call of ``fn``
+    launches the same kernels every time, so a whole session holds each
+    kernel's events a multiple of ``reps`` times; a session short of
+    that, or without an event naming ``kernel`` (if given), lost events
+    on the way to ``key_averages`` and is opened again, up to
+    ``PROFILE_TRIES`` sessions; after that the result is empty: not
+    measured, never zero or a part."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        if not str(ev.device_type).endswith("CUDA"):
-            continue
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
-        if us > 0:
-            out[ev.key] = out.get(ev.key, 0.0) + us / reps / 1e3
-    return out
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        # one kernel's events may come in more than one entry
+        out, seen = {}, {}
+        for ev in prof.key_averages():
+            if not str(ev.device_type).endswith("CUDA"):
+                continue
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+            if us > 0:
+                out[ev.key] = out.get(ev.key, 0.0) + us / reps / 1e3
+                seen[ev.key] = seen.get(ev.key, 0) + ev.count
+        short = [(k[:40], n, reps) for k, n in seen.items() if n % reps]
+        if not short and any(kernel is None or kernel in name
+                             for name in out):
+            return out
+        PROFILE_MISSES["retried"] += 1
+        if len(PROFILE_MISSES["short"]) < 6:
+            PROFILE_MISSES["short"].append(short[:2] or [(kernel, 0, reps)])
+    PROFILE_MISSES["not_measured"] += 1
+    return {}
 
 
-def device_ms(fn, kernel: str | None = None, reps: int = 20) -> float:
+def device_ms(fn, kernel: str | None = None, reps: int = 20):
     """Mean device time of the ``kernel`` launches (every device event if
-    None) that a call of ``fn`` makes (``device_kernels``)."""
-    return sum(ms for name, ms in device_kernels(fn, reps).items()
-               if kernel is None or kernel in name)
+    None) that a call of ``fn`` makes (``device_kernels``); None where the
+    profiler saw none of them."""
+    kern = device_kernels(fn, reps, kernel)
+    return sum(ms for name, ms in kern.items()
+               if kernel is None or kernel in name) if kern else None
+
+
+def ms_text(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def bound(ops: float, nbytes: float) -> tuple:
@@ -2125,24 +2625,30 @@ sys.path.insert(0, {root!r})
 import chip_smoke as cs
 from repro_torch.kernels import ops
 x = torch.load({path!r}, map_location="cuda")
-print(json.dumps({{n: [cs.median_ms(f, cs.TOPK_REPS), cs.device_kernels(f)]
-                  for n, f in cs.topk_cases(ops, x).items()}}))
+times = {{n: [cs.median_ms(f, cs.TOPK_REPS),
+              cs.device_kernels(f, kernel=n.split()[0])]
+          for n, f in cs.topk_cases(ops, x).items()}}
+print(json.dumps({{"times": times, "misses": cs.PROFILE_MISSES}}))
 """
 #: calls a median of phase 4's top-k times takes (a call's time holds the
 #: host's launch, which varies from call to call)
 TOPK_REPS = 50
 
 
-def tree_topk_times(tree: str, path: str) -> dict:
+def tree_topk_times(tree: str, path: str) -> tuple:
+    """``tree``'s top-k and gather kernels timed in a fresh process on
+    the inputs saved at ``path``: (name -> [ms a call, device kernels],
+    that process's ``PROFILE_MISSES``)."""
     tree, path = os.path.abspath(tree), os.path.abspath(path)
     out = subprocess.run(
         [sys.executable, "-c", PARENT_TIMER.format(
             src=os.path.join(tree, "src"), root=ROOT, path=path)],
         capture_output=True, text=True, timeout=600, cwd=tree)
     if out.returncode != 0:
-        fail(f"--parent-tree {tree}: exit {out.returncode}: "
+        fail(f"timing {tree} in a fresh process: exit {out.returncode}: "
              f"{out.stderr[-2000:]}")
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    return res["times"], res["misses"]
 
 
 def kernel_split(kern: dict, name: str) -> tuple:
@@ -2167,26 +2673,31 @@ def time_topk_shapes(ops, x, parent_tree=None) -> None:
     time (``device_kernels``, mean of 20): all of it, the kernel's own
     (with its merge, or the gather's inversion, each listed) and the
     wrapper's other kernels listed apart; beside the fp32 bound and, for
-    the centroid kernel, the 3xTF32 bound.  With ``parent_tree`` (another checkout, a
-    parent commit) its kernels are timed on the same inputs in a fresh
-    process before and after this tree's, and this tree's also in a fresh
-    process (a call's host time differs between a fresh process and this
-    one): parent, change (fresh), change, parent."""
+    the centroid kernel, the 3xTF32 bound.  This tree's kernels are also
+    timed in a fresh process on the same inputs: a call's host time
+    differs between a fresh process and this one, and this process's
+    profiler sessions lose device events after the paths have run (the
+    fresh process's shortfalls are printed beside).  With
+    ``parent_tree`` (another checkout, a parent commit) its kernels are
+    timed in a fresh process before and after this tree's: parent,
+    change (fresh), change, parent."""
     work = topk_work(x)
-    path = os.path.join(parent_tree, "_topk_inputs.pt") if parent_tree \
-        else None
-    before = after = sub = {}
-    if path:
-        torch.save(x, path)
-        before = tree_topk_times(parent_tree, path)
-        sub = tree_topk_times(ROOT, path)
-    mine = {n: (median_ms(f, TOPK_REPS), device_kernels(f))
+    path = os.path.join(parent_tree or ROOT, "_topk_inputs.pt")
+    before = after = {}
+    torch.save(x, path)
+    if parent_tree:
+        before, _ = tree_topk_times(parent_tree, path)
+    sub, misses = tree_topk_times(ROOT, path)
+    mine = {n: (median_ms(f, TOPK_REPS),
+                device_kernels(f, kernel=n.split()[0]))
             for n, f in topk_cases(ops, x).items()}
-    if path:
-        after = tree_topk_times(parent_tree, path)
-        os.remove(path)
+    if parent_tree:
+        after, _ = tree_topk_times(parent_tree, path)
+    os.remove(path)
 
     def dev(kern, name):
+        if not kern:
+            return "not measured on the card (no profiler events)"
         own, parts, rest = kernel_split(kern, name.split()[0])
         text = f"{sum(kern.values()):.4f} ms on the card ({own:.4f} kernel"
         if len(parts) > 1:
@@ -2204,13 +2715,16 @@ def time_topk_shapes(ops, x, parent_tree=None) -> None:
         if name.startswith("centroid_topk"):
             line += f", 3xTF32 {bound_3xtf32(*work[name]):.4f} ms"
         say(line)
+        say(f"    in a fresh process: {sub[name][0]:.4f} ms a call, "
+            f"{dev(sub[name][1], name)}")
         if name in before:
-            say(f"    this tree in a fresh process, as the parent's: "
-                f"{sub[name][0]:.4f} ms a call, {dev(sub[name][1], name)}")
             say(f"    parent tree: {before[name][0]:.4f} / "
                 f"{after[name][0]:.4f} ms a call; "
                 f"{dev(before[name][1], name)} / "
                 f"{dev(after[name][1], name)}")
+    say(f"  the fresh process's profiler sessions: {misses['retried']} "
+        f"opened again, {misses['not_measured']} calls not measured; "
+        f"first shortfalls {misses['short']}")
 
 
 def time_quant_kernels(ops, ref, qdrv, fdrv, q_np, counts) -> list:
@@ -2298,7 +2812,7 @@ def time_quant_kernels(ops, ref, qdrv, fdrv, q_np, counts) -> list:
     on_card = device_ms(lambda: ops.kmeans_assign(pts, cents),
                         "kmeans_assign")
     say(f"  kmeans_assign at the fit shape ({B} x {N} x {K} x {ds}): "
-        f"{rows[-1]['ms']:.4f} ms a call, {on_card:.4f} ms of it on the "
+        f"{rows[-1]['ms']:.4f} ms a call, {ms_text(on_card)} of it on the "
         "card (torch.profiler, mean of 20)")
     time_assign_shapes(ops, ref, st, flat, live)
 
@@ -2450,14 +2964,11 @@ def time_gathers(ops, ref, fdrv, qdrv, x, counts) -> list:
 def sdpa_backend(fn) -> tuple:
     """The backend a ``scaled_dot_product_attention`` call dispatched to,
     read off the names of the device kernels one call launches under
-    ``torch.profiler``: (label, the names)."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = sorted({ev.key for ev in prof.key_averages()
-                    if str(ev.device_type).endswith("CUDA")})
+    ``torch.profiler`` (``device_kernels``): (label, the names); "not
+    measured" where the profiler saw no device event."""
+    names = sorted(device_kernels(fn, reps=1))
+    if not names:
+        return "not measured", names
     low = " ".join(names).lower()
     for keys, label in ((("memeff", "fmha", "efficient"), "efficient"),
                         (("flash",), "flash"), (("cudnn",), "cudnn")):
@@ -2509,7 +3020,7 @@ def time_attention(ops, ref, dev, counts, seed: int) -> dict:
     row["library_ms"] = min(times.values())
     on_card = device_ms(lambda: ops.flash_attention(q, k, v, causal=True),
                         "flash_attention")
-    say(f"  flash_attention: {row['ms']:.4f} ms a call ({on_card:.4f} ms "
+    say(f"  flash_attention: {row['ms']:.4f} ms a call ({ms_text(on_card)} "
         f"on the card, torch.profiler), fp32 bound {row['bound_ms']:.4f} ms "
         f"({row['bound_by']}), 3xTF32 bound {bound_3xtf32(*work):.4f} ms, "
         f"faster SDPA {row['library_ms']:.4f} ms")
@@ -2567,16 +3078,17 @@ def copy_overlap(prof) -> dict:
 
 
 def profile_windows(drv, stream, qdrv, qstream, tdrv, tstream,
-                    embed_batch) -> dict:
-    """Device time by kernel over five windows, with ``torch.profiler``:
+                    embed_batch, sdrv, sstream) -> dict:
+    """Device time by kernel over six windows, with ``torch.profiler``:
     on the float path one load chunk (20k inserts, then ticks until
     quiescent) and one streaming step (20k inserts, 10k deletes, a tick,
-    a 256-query search); on the quant path and on the tiered path one
-    streaming step each; on the serving path one embedded batch of 64 x
-    512 tokens.  The busy share is device time over wall time (kernels of
-    one stream do not overlap; on the tiered path the tier's copies run
-    on a side stream, reported apart with their overlap); the wall time
-    includes the profiler's own host overhead."""
+    a 256-query search); on the quant path, the tiered path and the
+    sharded float path (phase 3h-1's driver) one streaming step each; on
+    the serving path one embedded batch of 64 x 512 tokens.  The busy
+    share is device time over wall time (kernels of one stream do not
+    overlap; on the tiered path the tier's copies run on a side stream,
+    reported apart with their overlap); the wall time includes the
+    profiler's own host overhead."""
     next_id = int(drv.state.id_loc.shape[0]) - 200_000
     windows = {}
 
@@ -2598,15 +3110,15 @@ def profile_windows(drv, stream, qdrv, qstream, tdrv, tstream,
                      ("stream_step", lambda: step(drv, stream)),
                      ("quant_stream_step", lambda: step(qdrv, qstream)),
                      ("tier_stream_step", lambda: step(tdrv, tstream)),
+                     ("sharded_stream_step", lambda: step(sdrv, sstream)),
                      ("serve_embed_batch", embed_batch)):
         wall, busy, rows, prof = window(fn)
         windows[name] = {
             "wall_s": wall, "device_busy_s": busy,
-            "busy_share": busy / wall if wall else 0.0,
+            "busy_share": busy / wall if busy is not None else None,
             "top": [{"kernel": k[:80], "ms": ms, "calls": c}
                     for k, ms, c in rows[:10]]}
-        say(f"  profile {name}: wall {wall:.4f} s, device busy {busy:.4f} s "
-            f"({100 * busy / wall:.1f}%)")
+        say(f"  profile {name}: wall {wall:.4f} s, {busy_text(wall, busy)}")
         for i, (k, ms, c) in enumerate(rows):
             if i < 6 or any(p in k for p in PORT_KERNELS):
                 say(f"    {ms:9.3f} ms  {c:6d} calls  {k[:70]}")
@@ -2770,6 +3282,16 @@ def main() -> None:
             sequential_checks(dev, ops, args.seed)):
         counts = {k: counts.get(k, 0) + v for k, v in launched.items()}
 
+    say(f"phase 3h: the sharded plane, make_index('ubis-sharded') on "
+        f"{SHARDS} logical shards of the card")
+    t = time.perf_counter()
+    launched, sdrv, sstream, _ = sharded_path(
+        dev, ops, (paths["quant"][0], paths["quant"][3]), args.seed)
+    counts = {k: counts.get(k, 0) + v for k, v in launched.items()}
+    launched = skew_runs(dev, ops, args.seed)
+    counts = {k: counts.get(k, 0) + v for k, v in launched.items()}
+    say(f"  phase 3h: {time.perf_counter() - t:.1f} s")
+
     say("phase 4: kernel times on the main paths' inputs")
     fdrv, fq, _, fstream, _ = paths["float"]
     qdrv, qq, _, qstream, _ = paths["quant"]
@@ -2790,8 +3312,12 @@ def main() -> None:
             f"{r['max_abs_err']:.3g}")
     say("phase 4b: device time by kernel (torch.profiler)")
     profile_windows(fdrv, fstream, qdrv, qstream, tdrv, tstream,
-                    lambda: server.embedder.embed(toks))
+                    lambda: server.embedder.embed(toks), sdrv, sstream)
     tdrv.close()
+    say(f"  profiler sessions short of the expected device events: "
+        f"{PROFILE_MISSES['retried']} opened again, "
+        f"{PROFILE_MISSES['not_measured']} calls not measured; first "
+        f"shortfalls (kernel, events, calls): {PROFILE_MISSES['short']}")
     say(f"  chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     say(smi)
     say(json.dumps({"kernels": rows}))

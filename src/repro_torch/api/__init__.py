@@ -6,9 +6,9 @@
     idx.insert(vecs, ids); idx.tick()
     res = idx.search(queries, k=10)                  # SearchResult
 
-Engines: ``ubis`` | ``spfresh`` | ``spann`` | ``freshdiskann``, all
-conforming to :class:`StreamingIndex`, so an engine comparison is one
-loop over names.  ``list_engines()`` returns each engine's
+Engines: ``ubis`` | ``spfresh`` | ``spann`` | ``freshdiskann`` |
+``ubis-sharded``, all conforming to :class:`StreamingIndex`, so an engine
+comparison is one loop over names.  ``list_engines()`` returns each engine's
 :class:`EngineSpec` with its capability flags.
 
 The registry imports the engine modules, which import the result types
@@ -20,7 +20,8 @@ from .types import (SearchRequest, SearchResult, StreamingIndex,  # noqa: F401
 
 __all__ = ["StreamingIndex", "SearchResult", "UpdateResult", "TickReport",
            "SearchRequest", "Ticket", "make_index", "list_engines",
-           "engine_spec", "EngineSpec", "ENGINES"]
+           "engine_spec", "EngineSpec", "ENGINES", "ShardedUBISDriver",
+           "RebalancePlanner"]
 
 
 def __getattr__(name):
@@ -28,4 +29,10 @@ def __getattr__(name):
                 "EngineSpec"):
         from . import registry
         return getattr(registry, name)
+    if name == "ShardedUBISDriver":
+        from .sharded_driver import ShardedUBISDriver
+        return ShardedUBISDriver
+    if name == "RebalancePlanner":
+        from .rebalance import RebalancePlanner
+        return RebalancePlanner
     raise AttributeError(f"module 'repro_torch.api' has no attribute {name!r}")

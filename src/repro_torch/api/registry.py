@@ -1,10 +1,10 @@
 """Engine registry: ``make_index(engine, cfg, seed_vectors, **kw)``.
 
-One constructor for every single-device engine of the paper's
-comparison.  All engines take the same ``UBISConfig`` (the registry
-rewrites ``mode`` and, for the graph baseline, translates to a
-``GraphConfig``), and keyword arguments unknown to an engine are
-dropped, so one kwargs dict drives a whole engine-comparison loop:
+One constructor for every engine of the paper's comparison.  All
+engines take the same ``UBISConfig`` (the registry rewrites ``mode``
+and, for the graph baseline, translates to a ``GraphConfig``), and
+keyword arguments unknown to an engine are dropped, so one kwargs dict
+drives a whole engine-comparison loop:
 
     for spec in list_engines():
         idx = make_index(spec.name, cfg, seed, seed_ids=ids0,
@@ -22,8 +22,9 @@ random draws ``kmeans_init``, ``pq_init`` and ``pq_keys``.
 ``seed_vectors`` follow each engine's construction story: the cluster
 engines (ubis/spfresh) use them for k-means seeding only (NOT inserted);
 the build-once engines (spann, freshdiskann) ingest them under
-``seed_ids`` (default ``arange``).  The sharded engines (ubis-sharded,
-ubis-cluster) raise until their slice is ported.
+``seed_ids`` (default ``arange``).  ``ubis-sharded`` takes a ``mesh``
+(``distributed.sharding.make_mesh``: S logical shards of one device);
+``ubis-cluster`` raises until its slice is ported.
 """
 from __future__ import annotations
 
@@ -42,11 +43,14 @@ _DRIVER_KW = frozenset({
     "pq_retrain_every", "tier_moves_per_tick", "tier_rerank_host",
     "tier_async", "obs", "obs_profile_dir"}) | _PORT_KW
 _UBIS_KW = _DRIVER_KW | {"fused_tick"}
+_SHARDED_KW = _DRIVER_KW | {"mesh", "shard_cache_scan", "rebalance",
+                            "rebalance_watermark", "rebalance_ratio",
+                            "migrate_per_tick", "route_alpha"}
 _SPANN_KW = frozenset({"seed", "round_size", "obs"}) | _PORT_KW
 _GRAPH_KW = frozenset({"max_nodes", "degree", "beam", "alpha",
                        "consolidate_every", "obs", "device"})
 #: engines of the JAX package's registry whose slice is not ported yet
-NOT_PORTED = ("ubis-sharded", "ubis-cluster")
+NOT_PORTED = ("ubis-cluster",)
 
 
 def _pick(kw: dict, allowed: frozenset) -> dict:
@@ -87,6 +91,11 @@ def _build_ubis_mode(mode):
         from ..core.driver import UBISDriver
         return UBISDriver(_with_mode(cfg, mode), seed_vectors, **kw)
     return build
+
+
+def _build_sharded(cfg, seed_vectors, seed_ids, kw):
+    from .sharded_driver import ShardedUBISDriver
+    return ShardedUBISDriver(_with_mode(cfg, "ubis"), seed_vectors, **kw)
 
 
 def _seed_arrays(seed_vectors, seed_ids):
@@ -135,6 +144,13 @@ _REGISTRY: dict[str, EngineSpec] = {spec.name: spec for spec in (
         name="freshdiskann",
         description="FreshDiskANN Vamana graph baseline",
         build=_build_freshdiskann, kwargs=_GRAPH_KW, audit="count"),
+    EngineSpec(
+        name="ubis-sharded",
+        description="ShardedUBISDriver: host orchestration over the "
+                    "sharded programs (S logical shards of one device)",
+        build=_build_sharded, kwargs=_SHARDED_KW,
+        supports_tier=True, supports_pq=True, supports_shards=True,
+        audit="state"),
 )}
 
 ENGINES = tuple(_REGISTRY)

@@ -58,14 +58,19 @@ def detect(state: IndexState, cfg: UBISConfig):
     return split_due, merge_due, compact_due
 
 
-def shard_pressure(state: IndexState, cfg: UBISConfig):
-    """Pressure stats for the posting pool: ``(live_postings, free_slots,
-    cache_backlog, live_vectors)`` as a (4,) int32 tensor."""
+def shard_pressure(state: IndexState, cfg: UBISConfig, base_pid=0):
+    """Pressure stats for ONE posting pool: ``(live_postings, free_slots,
+    cache_backlog, live_vectors)`` as a (4,) int32 tensor.  ``base_pid``
+    is the pool's global pid offset: cache targets are global pids, so
+    the backlog counts the parked jobs bound for THIS pool's postings.
+    Shared by the sharded background round (per shard) and
+    ``UBISDriver.shard_pressure`` (base 0, the whole pool)."""
     M = state.allocated.shape[0]
     status = vm.unpack_status(state.rec_meta)
     alive = state.allocated & (status != STATUS_DELETED)
     t = state.cache_target
-    backlog = (state.cache_valid & (t >= 0) & (t < M)).sum()
+    lo = int(base_pid)
+    backlog = (state.cache_valid & (t >= lo) & (t < lo + M)).sum()
     live_vecs = torch.where(alive, state.lengths, 0).sum()
     return torch.stack([alive.sum(), (~state.allocated).sum(), backlog,
                         live_vecs]).to(torch.int32)
@@ -616,7 +621,7 @@ def _reassign(state, cfg, r_pid):
 
 
 def background_round(state: IndexState, cfg: UBISConfig, kinds, pids,
-                     reassign: bool = True):
+                     reassign: bool = True, use_cache: bool = True):
     """Execute a padded batch of marked background ops.
 
     kinds: (B,) int in {KIND_NONE, KIND_SPLIT, KIND_MERGE, KIND_COMPACT}
@@ -624,9 +629,12 @@ def background_round(state: IndexState, cfg: UBISConfig, kinds, pids,
 
     Ops must have been marked (SPLITTING for split/compact, MERGING for
     merge) in an earlier round.  ``reassign=False`` skips the fused
-    reassign over the postings born this round.  Updates ``state`` in
-    place; returns (state, BackgroundRound).  The JAX package's
-    ``use_cache=False`` (the sharded plane) is not ported yet."""
+    reassign over the postings born this round.  ``use_cache=False``
+    folds split-side spills back into child ``a`` instead of the cache
+    (the sharded plane, where a shard may not write the replicated
+    cache).  Every shape comes from ``state``, so the round runs on a
+    shard's sub-pool too.  Updates ``state`` in place; returns (state,
+    BackgroundRound)."""
     dev = state.device
     B = kinds.shape[0]
     C, d = cfg.capacity, cfg.dim
@@ -830,10 +838,14 @@ def background_round(state: IndexState, cfg: UBISConfig, kinds, pids,
     mo_tgt = torch.where(mo, best_other.reshape(B * C), -1)
     state, mo_ok, _ = batched_append(state, cfg, mo_vecs, mo_ids, mo_tgt, mo)
     spill = mo & ~mo_ok
-    state, cache_ok = cache_append(state, cfg, mo_vecs, mo_ids,
-                                   torch.where(spill, mo_tgt, -1), spill)
-    lost = spill & ~cache_ok
-    n_spill = (spill & cache_ok).sum()
+    if use_cache:
+        state, cache_ok = cache_append(state, cfg, mo_vecs, mo_ids,
+                                       torch.where(spill, mo_tgt, -1), spill)
+        lost = spill & ~cache_ok
+        n_spill = (spill & cache_ok).sum()
+    else:  # no cache (the sharded plane): every spill folds back
+        lost = spill
+        n_spill = torch.zeros((), dtype=torch.int64, device=dev)
     # spills the cache cannot hold fold back into child a — always fits
     pa_row = pa[:, None].expand(B, C).reshape(B * C)
     state, _, _ = batched_append(state, cfg, mo_vecs, mo_ids,

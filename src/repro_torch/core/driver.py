@@ -677,6 +677,12 @@ class UBISDriver:
         from .metrics import live_posting_lengths
         return live_posting_lengths(self.state)
 
+    def shard_pressure(self) -> np.ndarray:
+        """The (1, 4) single-pool pressure row: the same
+        ``balance.shard_pressure`` signal the sharded background round
+        reports per shard, so monitors read one format either way."""
+        return balance.shard_pressure(self.state, self.cfg).cpu().numpy()[None]
+
     def live_count(self) -> int:
         """Vectors in visible postings + the cache."""
         return int(self.state.live_vector_count()) + int(

@@ -31,6 +31,28 @@ def live_posting_lengths(state) -> np.ndarray:
     return lens[lens > 0]
 
 
+def shard_live_vectors(state, n_shards: int) -> np.ndarray:
+    """Live vectors per posting-pool shard (contiguous pid blocks over
+    the ``model`` axis): the occupancy signal behind ``figskew`` and the
+    rebalance acceptance ratio."""
+    status = (state.rec_meta & 3).cpu().numpy()
+    alive = state.allocated.cpu().numpy() & (status != STATUS_DELETED)
+    lens = np.where(alive, state.lengths.cpu().numpy(), 0)
+    return lens.reshape(n_shards, -1).sum(axis=1)
+
+
+def occupancy_spread(occ) -> dict:
+    """Spread statistics over per-shard occupancy: ``occ_ratio`` is the
+    acceptance metric max/min (min clamped to 1 so an empty shard reads
+    as a huge, not infinite, ratio); ``occ_spread`` = max/mean is the
+    bounded form."""
+    occ = np.asarray(occ, float)
+    mx, mn, mean = occ.max(), occ.min(), occ.mean()
+    return {"occ_min": int(mn), "occ_max": int(mx),
+            "occ_ratio": float(mx / max(mn, 1.0)),
+            "occ_spread": float(mx / max(mean, 1.0))}
+
+
 def throughput_from_stats(stats) -> dict:
     """TPS/QPS derived from a driver's counter mapping (updates over
     insert + delete + background wall time)."""

@@ -156,6 +156,11 @@ class HostTierPool:
     def get(self, pid: int) -> torch.Tensor:
         return self._tile(self._row[int(pid)])
 
+    def remap(self, src: int, dst: int) -> None:
+        """Migration hand-off: the posting moved pids without promoting
+        (its tile stays in the same row)."""
+        self._row[int(dst)] = self._row.pop(int(src))
+
     def pids(self) -> np.ndarray:
         return np.asarray(sorted(self._row), np.int32)
 

@@ -68,7 +68,7 @@ class UBISConfig:
     succ_chase_depth: int = 4         # bounded DELETED pointer chasing
     dtype: Any = torch.float32        # vector storage dtype
     mode: str = "ubis"                # "ubis" | "spfresh" (baseline semantics)
-    shard_probe_cap: int = 0          # sharded plane (a later slice)
+    shard_probe_cap: int = 0          # sharded search: probes a shard scans
     # --- product-quantization plane --------------------------------------
     use_pq: bool = False
     pq_m: int = 8

@@ -140,12 +140,15 @@ def ensure_free_stack(state: IndexState) -> IndexState:
 # ---------------------------------------------------------------------------
 
 def batched_append(state: IndexState, cfg: UBISConfig, vecs, ids, pids,
-                   valid):
+                   valid, update_id_loc: bool = True):
     """Append jobs to their target postings; winners are decided by
     group rank against the remaining tile capacity.  Returns
-    (state, ok, flat) with ``flat = pid*C + slot`` (``M*C`` for losers)."""
+    (state, ok, flat) with ``flat = pid*C + slot`` (``max_postings*C``
+    for losers, a sentinel past any pool).  The pool is the state's own,
+    a shard's sub-pool included; ``update_id_loc=False`` leaves the id map
+    to the caller (the sharded insert merges it across shards)."""
     C = cfg.capacity
-    M = cfg.max_postings
+    M = state.used.shape[0]
     pids = pids.to(torch.int64)
     ranks = group_ranks(pids, valid)
     safe_pid = pids.clamp(0, M - 1)
@@ -157,8 +160,10 @@ def batched_append(state: IndexState, cfg: UBISConfig, vecs, ids, pids,
     masked_set_(_flat(state.slot_valid), flat, True, ok)
     masked_add_(state.used, pids, 1, ok)
     masked_add_(state.lengths, pids, 1, ok)
-    masked_set_(state.id_loc, ids.to(torch.int64).clamp(0, cfg.max_ids - 1),
-                flat.to(torch.int32), ok)
+    if update_id_loc:
+        masked_set_(state.id_loc,
+                    ids.to(torch.int64).clamp(0, cfg.max_ids - 1),
+                    flat.to(torch.int32), ok)
     if cfg.use_pq:
         # every float write carries its code, encoded under the TARGET
         # posting's codebook slot (encoded under all V slots, selected
@@ -174,7 +179,7 @@ def batched_append(state: IndexState, cfg: UBISConfig, vecs, ids, pids,
                 * C + slot.clamp(max=C - 1)[:, None])              # (J, m)
         masked_set_(state.codes.view(-1), cidx.reshape(-1),
                     code_j.reshape(-1), ok.repeat_interleave(m))
-    return state, ok, torch.where(ok, flat, M * C)
+    return state, ok, torch.where(ok, flat, cfg.max_postings * C)
 
 
 def cache_append(state: IndexState, cfg: UBISConfig, vecs, ids, targets,
@@ -221,7 +226,7 @@ def insert_round(state: IndexState, cfg: UBISConfig, vecs, ids, valid,
     used by cache drains (the path that exercises the paper's
     DELETED-branch pointer chasing).  Returns (state, RoundResult,
     touched (M,) bool)."""
-    M = cfg.max_postings
+    M = state.used.shape[0]
     status = vm.unpack_status(state.rec_meta)
     insertable = (state.allocated & (status != STATUS_DELETED)
                   & ~state.tier_spilled)
@@ -267,16 +272,22 @@ def insert_round(state: IndexState, cfg: UBISConfig, vecs, ids, valid,
 
 
 def apply_tombstones(state: IndexState, cfg: UBISConfig, safe_ids, loc,
-                     in_post, in_cache):
+                     in_post, in_cache, *, base=0):
     """The delete step (UBIS semantics): tombstone the slots of
-    ``in_post`` jobs (``loc`` = flat tile location), drop the cache
-    entries of ``in_cache`` jobs (``loc = -2 - slot``), clear their id_loc.
-    The JAX package's owner-span argument (the sharded plane) is not
-    ported yet."""
+    ``in_post`` jobs (``loc`` = global flat tile location), drop the
+    cache entries of ``in_cache`` jobs (``loc = -2 - slot``), clear their
+    id_loc.  Only locations in ``[base, base + span)`` (``span`` = this
+    state's pool in flat slots) touch the tiles: a shard's owner span in
+    the sharded delete, the whole pool for the single-device caller
+    (``base=0``).  The cache and id-map updates follow from the
+    replicated inputs alone, so shard replicas stay identical."""
     C = cfg.capacity
-    lloc = loc.to(torch.int64).clamp(min=0)
-    masked_set_(_flat(state.slot_valid), lloc, False, in_post)
-    masked_add_(state.lengths, lloc // C, -1, in_post)
+    span = state.lengths.shape[0] * C
+    lloc = loc.to(torch.int64) - base
+    mine = in_post & (lloc >= 0) & (lloc < span)
+    lloc = lloc.clamp(0, span - 1)
+    masked_set_(_flat(state.slot_valid), lloc, False, mine)
+    masked_add_(state.lengths, lloc // C, -1, mine)
     cslot = (-2 - loc.to(torch.int64)).clamp(0, cfg.cache_capacity - 1)
     masked_set_(state.cache_valid, cslot, False, in_cache)
     done = in_post | in_cache

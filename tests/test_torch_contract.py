@@ -28,6 +28,7 @@ from contract_harness import make_clustered, run_program
 from repro_torch import bridge
 from repro_torch.api import ENGINES, engine_spec, list_engines, make_index
 from repro_torch.core.types import IndexState, UBISConfig
+from repro_torch.distributed import make_mesh
 from repro_torch.serving import QueuedIndex
 from test_contract_properties import DIM, N_DATA, TIER_KW
 from test_torch_pq import jax_draws
@@ -65,13 +66,13 @@ class CheckpointView:
         return getattr(self.index, name)
 
 
-def _build(engine, data, seed, cfg_kw=None):
+def _build(engine, data, seed, cfg_kw=None, index_kw=None):
     cfg = _cfg(**(cfg_kw or {}))
     init, pq_init, keys = jax_draws(cfg, N_SEED, seed=seed)
     kw = dict(seed_ids=np.arange(N_SEED), round_size=256,
               bg_ops_per_round=8, insert_retries=4, seed=seed,
               max_nodes=1 << 13, beam=24, device="cpu", kmeans_init=init,
-              pq_init=pq_init, pq_keys=keys)
+              pq_init=pq_init, pq_keys=keys, **(index_kw or {}))
     idx = CheckpointView(make_index(engine, cfg, data[:N_SEED], **kw))
     seed_ids = (np.arange(N_SEED)
                 if engine_spec(engine).audit in ("static", "count")
@@ -80,15 +81,15 @@ def _build(engine, data, seed, cfg_kw=None):
 
 
 def _run(engine, seed, cfg_kw=None, restore: bool = False,
-         queued: bool = False):
+         queued: bool = False, index_kw=None):
     data = make_clustered(N_DATA, d=DIM, k=10, seed=100 + seed)
-    idx, seed_ids = _build(engine, data, seed, cfg_kw)
+    idx, seed_ids = _build(engine, data, seed, cfg_kw, index_kw)
     if queued:
         idx = QueuedIndex(idx)
     restore_fn = None
     if restore:
         def restore_fn(snap):
-            idx2, _ = _build(engine, data, seed, cfg_kw)
+            idx2, _ = _build(engine, data, seed, cfg_kw, index_kw)
             idx2 = idx2.load_snapshot(snap)
             return QueuedIndex(idx2) if queued else idx2
     _, stats = run_program(engine, idx, data, seed, seed_ids=seed_ids,
@@ -120,4 +121,26 @@ def test_contract_through_serving_queue(engine):
 
 def test_contract_through_serving_queue_tiered():
     stats = _run("ubis", seed=0, cfg_kw=TIER_KW, restore=True, queued=True)
+    assert stats["inserted"] > 0
+
+
+def _four_shards():
+    return dict(mesh=make_mesh((1, 4), ("data", "model"), device="cpu"))
+
+
+def test_contract_sharded_four_shards():
+    stats = _run("ubis-sharded", seed=0, index_kw=_four_shards())
+    assert stats["inserted"] > 0
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_contract_sharded_four_shards_tiered(seed):
+    stats = _run("ubis-sharded", seed, cfg_kw=TIER_KW, restore=True,
+                 index_kw=_four_shards())
+    assert stats["inserted"] > 0
+
+
+def test_contract_sharded_four_shards_through_serving_queue():
+    stats = _run("ubis-sharded", seed=0, queued=True,
+                 index_kw=_four_shards())
     assert stats["inserted"] > 0

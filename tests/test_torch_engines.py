@@ -74,7 +74,7 @@ FLAGS = ("supports_tier", "supports_pq", "supports_shards", "updatable",
 
 
 @pytest.mark.parametrize("engine", ["ubis", "spfresh", "spann",
-                                    "freshdiskann"])
+                                    "freshdiskann", "ubis-sharded"])
 def test_registry_spec_matches_jax(engine):
     spec, jspec = engine_spec(engine), j_engine_spec(engine)
     assert spec.name == jspec.name
@@ -88,11 +88,12 @@ def test_registry_spec_matches_jax(engine):
 
 
 def test_list_engines_and_the_unported_engines():
-    assert ENGINES == ("ubis", "spfresh", "spann", "freshdiskann")
+    assert ENGINES == ("ubis", "spfresh", "spann", "freshdiskann",
+                       "ubis-sharded")
     assert tuple(s.name for s in list_engines()) == ENGINES
     cfg = UBISConfig(dim=8, max_postings=64, capacity=32, l_min=4, l_max=24)
     seeds = np.zeros((60, 8), np.float32)
-    for engine in ("ubis-sharded", "ubis-cluster", "nope"):
+    for engine in ("ubis-cluster", "nope"):
         with pytest.raises(ValueError):
             make_index(engine, cfg, seeds, device="cpu")
 
