@@ -73,8 +73,9 @@ Phases, in order (any failure exits non-zero before the last line):
    residency invariant; its counters, the memory split and search
    seconds beside the quant path's; 64 tiles spilled and promoted back
    bit for bit.
-   (c) the quant path once more on the float path's data, one streaming
-   step, its recall reported and not gated (see ``QUANT_DATA``).
+   (c) the quant path once more on the float path's data at
+   ``QUANT_3C`` vectors, one streaming step, its recall reported and not
+   gated (see ``QUANT_DATA``).
    (d) the serving path: ``RetrievalServer`` over the full-width
    tinyllama-1.1b backbone (22 layers, d_model 2048, 32/4 heads, weights
    drawn from ``--seed``) and the default ``ubis`` index (64-d
@@ -95,7 +96,8 @@ Phases, in order (any failure exits non-zero before the last line):
    count); then one more identical step on both drivers, its tick
    profiled fused against unfused (wall, device busy share).  Every
    engine of ``list_engines()`` (ubis, spfresh, spann, freshdiskann,
-   ubis-sharded on its default mesh: one shard on a one-card machine)
+   ubis-sharded on its default mesh: one shard on a one-card machine;
+   ubis-cluster: one in-process worker, every message through the codec)
    through one kwargs dict at d = 128 (``max_postings`` 65,504,
    ``capacity`` 96, ``nprobe`` 32; the graph's registry defaults), over
    a ``DriftingVectorStream`` of 400 clusters: the cluster engines 20k
@@ -111,8 +113,10 @@ Phases, in order (any failure exits non-zero before the last line):
    state at d = 128: the same live map, the invariants on both.
    Phase 3h, the sharded plane: ``make_index("ubis-sharded", ...)`` on
    S = 4 logical shards of the card (``make_mesh((1, 4))``, 16,376
-   postings a shard).  3h-1: the float path's configuration and data,
-   loaded through the sharded insert rounds, then 3 streaming steps;
+   postings a shard).  3h-1: the float path's configuration and data
+   at ``SHARD_LOAD`` vectors (1,000,000 until phase 3i came: the whole
+   script's time), loaded through the sharded insert rounds, then 3
+   streaming steps;
    3h-2: the quant path's final state adopted (``load_snapshot``), then
    2 steps; 3h-3: figskew's stream (16 clusters, Zipf 1.5 popularity,
    ``benchmarks/figures.py:293-383``) at d = 128, 200,000 vectors in 10
@@ -130,6 +134,34 @@ Phases, in order (any failure exits non-zero before the last line):
    (``held_on_path``: the shard-local pools, the ownership masks); Zipf
    on: max/min occupancy <= 1.5, migrations > 0, recall@10 within 2
    points of the uniform run (the off runs are reported, not gated).
+   Phase 3i, the cluster plane (``make_index("ubis-cluster", ...)``),
+   after the card's compute mode is read (two worker processes need two
+   CUDA contexts: ``Default`` or the run fails).  3i-1: the float path's
+   configuration on two worker processes (``backend="multiprocess"``,
+   ``python -m repro_torch.cluster.worker``, 32,752 postings and one
+   shard each): the 1M load and 2 steps with 3a's gates, worker live
+   max/min <= 1.5, the invariants on each worker's snapshot and every
+   float kernel launched in the worker processes (their own counts);
+   then ``checkpoint``, one more step, SIGKILL of worker 0 between
+   commands, the next call's recovery (``worker_lost``, then
+   ``worker_restarted`` from the checkpoint with commands replayed) to
+   the digest before the kill, and a fresh two-worker cluster's
+   ``restore`` to the manifest's digest, its search equal to the
+   original's at checkpoint time, ids bit for bit.  3i-2: ``workers=1``
+   on the ``LocalBackend`` (every message through the codec) with
+   ``mesh_shape=(1, 4)`` against ``ubis-sharded`` on ``make_mesh((1,
+   4))``, the tiered path's configuration (``tier_hot_max`` scaled to
+   200,000 vectors) over 3h-3's Zipf stream at 200,000 vectors, spills
+   and promotes forced between batches, a re-train every 8 ticks: the
+   per-op tape, the snapshot and the stats identical, migrations,
+   re-trains and spills > 0, the replicas identical after every tick
+   leg, and every quant kernel held against its plain version on the
+   worker's own inputs (``held_on_path``).  3i-3: figdist's stream
+   (``benchmarks/figures.py:386-440``, 16 clusters, Zipf 1.5) at d =
+   128, 200,000 vectors in 10 batches each flushed for at most 8 ticks,
+   over two workers on the local and on the multiprocess backend: the
+   tapes, digests and searches equal, max/min <= 1.5, recall@10 >= 0.9
+   against ``exact`` at nprobe 128.
 4. Each kernel timed (CUDA events, median of 20 runs after warm-up) on
    its path's own inputs, beside its plain version, its bound and, where
    one PyTorch call computes the same product, that call (``addmm`` /
@@ -177,7 +209,7 @@ import subprocess
 import sys
 import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from unittest import mock
 
 import numpy as np
@@ -955,6 +987,9 @@ class Stream:
 #: JAX package, with the same algorithm, behaves the same way: see
 #: PERF.md, the quant path).
 QUANT_DATA = dict(scale=1.5, tau=16)
+#: phase 3c's load (1,000,000 until phase 3i came: the whole script's
+#: time); the float path's stream at this size has 1,000 centres
+QUANT_3C = 500_000
 
 
 def quant_config(dim: int) -> dict:
@@ -1017,8 +1052,9 @@ def main_path(dev, *, n: int, dim: int, max_postings: int,
     least ``TIER_SHARE`` of the live postings spilled after the load);
     ``data``: keyword arguments of ``Stream``; ``gate=False`` reports
     recall@10 without failing below 0.9; ``index_kw``: more keyword
-    arguments of ``make_index`` (``fused_tick``, ``obs``, ``mesh``);
-    ``engine``: ``ubis`` or ``ubis-sharded``; ``hook(drv, stage)`` runs
+    arguments of ``make_index`` (``fused_tick``, ``obs``, ``mesh``,
+    ``workers``); ``engine``: ``ubis``, ``ubis-sharded`` or
+    ``ubis-cluster``; ``hook(drv, stage)`` runs
     after the build, the load and each step.  Returns (driver, last queries,
     per-phase seconds, recalls, stream)."""
     from repro_torch.api import make_index
@@ -1103,9 +1139,19 @@ def main_path(dev, *, n: int, dim: int, max_postings: int,
     if live != want:
         fail(f"live_count {live} != inserted - deleted {want}")
     # the sharded rounds leave the free stack fail-safe EMPTY: the
-    # invariants read a snapshot, which rebuilds and checks it
-    check_invariants(drv.snapshot() if engine == "ubis-sharded"
-                     else drv.state, cfg)   # with use_pq: codes == encode
+    # invariants read a snapshot, which rebuilds and checks it; a
+    # cluster's snapshot holds each worker's state, under its worker cfg
+    if engine == "ubis-cluster":
+        from repro_torch.core.types import IndexState
+        snap = drv.snapshot()
+        for st in getattr(snap, "states", [snap]):
+            check_invariants(IndexState(**{k: v.to(dev) for k, v in
+                                           vars(st).items()}),
+                             drv._worker_cfg)
+        del snap
+    else:
+        check_invariants(drv.snapshot() if engine == "ubis-sharded"
+                         else drv.state, cfg)   # use_pq: codes == encode
     if tier:
         check_residency(drv.state, cfg, drv.tier.pool)
     if quant and drv.stats["pq_retrains"] < 1:
@@ -1466,6 +1512,7 @@ def serve_path(dev, ops, ref, *, seed: int, reduced: bool = False,
 ENGINE_DEPTH = {"ubis": (20000, 5, 20000, 10000),
                 "spfresh": (20000, 5, 20000, 10000),
                 "ubis-sharded": (20000, 5, 20000, 10000),
+                "ubis-cluster": (20000, 5, 20000, 10000),
                 "spann": (20000, 5, 20000, 10000),
                 "freshdiskann": (2048, 2, 2048, 1024)}
 #: the stream's clusters: with nprobe = 32 the probes must cover a
@@ -1475,7 +1522,7 @@ ENGINE_CLUSTERS = 400
 #: recall@10 floors against each engine's own exact(), those of the
 #: contract harness (tests/contract_harness.py)
 RECALL_FLOOR = {"ubis": 0.9, "spfresh": 0.9, "freshdiskann": 0.15,
-                "spann": 0.8, "ubis-sharded": 0.9}
+                "spann": 0.8, "ubis-sharded": 0.9, "ubis-cluster": 0.9}
 #: phase 3g's index configuration: the float path's
 FRONT_CFG = dict(dim=128, max_postings=65504, capacity=96, l_min=10,
                  l_max=80, balance_factor=0.15, nprobe=32,
@@ -1817,9 +1864,11 @@ def sequential_checks(dev, ops, seed: int, log=say) -> dict:
 
 #: model-axis shards of phase 3h (16,376 postings a shard at 65,504)
 SHARDS = 4
-#: 3h-1/3h-2's ``migrate_per_tick``: 1M seed vectors seed 16,376 postings,
-#: every one on shard 0 (contiguous pids), so shard 0 starts saturated
-#: and thousands of postings must move before its splits can allocate
+#: 3h-1's load: 500,000 seed vectors seed 8,929 postings, every one on
+#: shard 0 (contiguous pids), so thousands of postings must move before
+#: the shards' live vectors are within ``rebalance_ratio``
+SHARD_LOAD = 500_000
+#: 3h-1/3h-2's ``migrate_per_tick``
 SHARD_MIGRATE = 512
 #: 3h-3, figskew's stream at d = 128: (clusters, Zipf exponent, vectors,
 #: batches, ``migrate_per_tick``, ticks a flush at most, the wider nprobe
@@ -2075,13 +2124,13 @@ def sharded_path(dev, ops, qpath, seed: int, log=say):
         for k, v in launched.items():
             launches[k] = launches.get(k, 0) + v
 
-    log(f"  3h-1: float, 1,000,000 x 128-d, {SHARDS} shards, "
+    log(f"  3h-1: float, {SHARD_LOAD:,} x 128-d, {SHARDS} shards, "
         f"migrate_per_tick {SHARD_MIGRATE}")
     t0 = time.perf_counter()
     ops.reset_launch_counts()
     with held_on_path(ops, ref, SHARD_KERNELS["float"], log):
         drv, q, secs, recalls, stream = main_path(
-            dev, n=1_000_000, dim=128, max_postings=65504,
+            dev, n=SHARD_LOAD, dim=128, max_postings=65504,
             cache_capacity=4096, steps=3, fresh=20000, dels=10000,
             queries=256, chunk=20000, seed=seed, round_size=2048, bg_ops=64,
             engine="ubis-sharded", hook=shard_hook(log), log=log,
@@ -2211,6 +2260,382 @@ def skew_runs(dev, ops, seed: int, log=say) -> dict:
                                f"{r['recall_wide']:.4f}"
                                for n, r in res.items()))
     return ops.launch_counts()
+
+
+# ---------------------------------------------------------------------------
+# phase 3i: the cluster plane (coordinator, worker processes, recovery)
+# ---------------------------------------------------------------------------
+
+#: 3i-1's worker processes, one logical shard each (32,752 postings)
+CLUSTER_WORKERS = 2
+#: where 3i-1 writes its checkpoint, inside the checkout (.gitignore)
+CLUSTER_CKPT = os.path.join(ROOT, "_cluster_ckpt")
+#: 3i-2's tiered seam: the float-resident postings of ``TIER_HOT_MAX``
+#: scaled from 1M vectors to 200,000, the re-train cadence in ticks, and
+#: the forced spills and promotes between batches
+SEAM = dict(hot_max=TIER_HOT_MAX * 200_000 // 1_000_000, retrain=8,
+            spill=64, promote=32)
+#: 3i-3, figdist's stream (``benchmarks/figures.py:386-440``) at d = 128:
+#: vectors, batches, ticks a flush at most, the gated recall's nprobe
+FIGDIST = dict(n=200_000, batches=10, flush=8, nprobe=128)
+
+
+def compute_mode() -> str:
+    """The card's compute mode (``nvidia-smi``); two worker processes
+    need two CUDA contexts on it, which only ``Default`` allows."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.stdout.strip() \
+        else f"unknown ({out.stderr.strip()})"
+
+
+def worker_launches(coord, reset: bool = False) -> dict:
+    """The kernel launches counted in the coordinator's worker processes
+    (each counts its own), summed; ``reset`` zeroes them first."""
+    total: dict = {}
+    for w in range(coord.n_workers):
+        got = coord.backend.call(w, "launches", {"reset": reset})
+        for k, v in got["launches"].items():
+            total[k] = total.get(k, 0) + int(v)
+    return total
+
+
+def need_launched(label: str, launched: dict, names) -> None:
+    for name in names:
+        if launched.get(name, 0) <= 0:
+            fail(f"kernel {name} was never launched on {label}")
+
+
+def journal_bytes(coord) -> int:
+    """Host bytes of the arrays the coordinator's journal holds."""
+    def nbytes(x) -> int:
+        if isinstance(x, np.ndarray):
+            return x.nbytes
+        if isinstance(x, dict):
+            return sum(nbytes(v) for v in x.values())
+        if isinstance(x, (list, tuple)):
+            return sum(nbytes(v) for v in x)
+        return 0
+    return sum(nbytes(p) for j in coord._journal for _, p in j)
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def cluster_float_path(dev, ops, seed: int, log=say) -> dict:
+    """Phase 3i-1: the float path's deployment on two worker processes,
+    then the failure plane (checkpoint, a step, SIGKILL of worker 0,
+    recovery by journal replay, a fresh cluster's restore).  Returns the
+    worker processes' launches."""
+    import shutil
+
+    from repro_torch.api import make_index
+    from repro_torch.core import metrics
+    from repro_torch.obs import Obs
+    obs = Obs()
+    launched: dict = {}
+
+    def hook(drv, stage):
+        if stage == "built":
+            worker_launches(drv, reset=True)
+            return
+        live = drv.worker_live()
+        log(f"  {stage}: worker live {live.tolist()}, max/min "
+            f"{metrics.occupancy_spread(live)['occ_ratio']:.3f}")
+
+    t0 = time.perf_counter()
+    drv, q, secs, recalls, stream = main_path(
+        dev, n=1_000_000, dim=128, max_postings=65504, cache_capacity=4096,
+        steps=2, fresh=20000, dels=10000, queries=256, chunk=20000,
+        seed=seed, round_size=2048, bg_ops=64, engine="ubis-cluster",
+        hook=hook, log=log, index_kw=dict(
+            workers=CLUSTER_WORKERS, backend="multiprocess", obs=obs))
+    for k, v in worker_launches(drv).items():
+        launched[k] = launched.get(k, 0) + v
+    need_launched("the cluster's float path (worker processes)", launched,
+                  SHARD_KERNELS["float"])
+    live = drv.worker_live()
+    ratio = metrics.occupancy_spread(live)["occ_ratio"]
+    log(f"  seconds per phase: "
+        f"{json.dumps({k: round(v, 3) for k, v in secs.items()})}")
+    log(f"  launches in the worker processes: {json.dumps(launched)}")
+    log(f"  recall@10 per step (gated >= 0.9): {recalls}; live "
+        f"{drv.live_count()} = inserted - deleted; worker live "
+        f"{live.tolist()}, max/min {ratio:.3f} (gate <= 1.5); invariants "
+        "hold on every worker's snapshot")
+    if not ratio <= 1.5:
+        fail(f"cluster worker live max/min {ratio:.3f} > 1.5")
+
+    # the failure plane, as examples/elastic_restart.py runs it
+    shutil.rmtree(CLUSTER_CKPT, ignore_errors=True)
+    q_ck = stream.draw(256)
+    t = time.perf_counter()
+    manifest = drv.checkpoint(CLUSTER_CKPT)
+    ck_s = time.perf_counter() - t
+    ck_bytes = dir_bytes(CLUSTER_CKPT)
+    ids_ck = drv.search(q_ck, 10).ids
+    stream_steps(drv, stream, secs, steps=1, fresh=20000, dels=10000,
+                 queries=256, next_id=stream.next_id, oldest=stream.oldest,
+                 log=log)
+    t = time.perf_counter()
+    before = drv.snapshot().digest
+    snap_s = time.perf_counter() - t
+    jbytes = journal_bytes(drv)
+    t = time.perf_counter()
+    drv.backend.kill_worker(0)                # SIGKILL between commands
+    drv.live_count()                          # the first call recovers
+    rec_s = time.perf_counter() - t
+    after = drv.snapshot().digest
+    lost, rst = obs.events("worker_lost"), obs.events("worker_restarted")
+    if not lost or not rst or not rst[-1]["from_checkpoint"] \
+            or not rst[-1]["replayed"] > 0 or rst[-1]["worker"] != 0:
+        fail(f"no recovery of worker 0 from the checkpoint: lost {lost}, "
+             f"restarted {rst}")
+    if after != before:
+        fail(f"the live multiset changed across the restart: digest "
+             f"{after:#x} != {before:#x}")
+    log(f"  checkpoint {ck_s:.1f} s ({ck_bytes} bytes on disk, combined "
+        f"digest {manifest['combined_digest']:#x}); a snapshot of both "
+        f"workers with their digests {snap_s:.1f} s; SIGKILL of worker 0 "
+        f"after one more step, recovered in {rec_s:.1f} s (worker_lost: "
+        f"{lost[-1]['reason']}; from_checkpoint, {rst[-1]['replayed']} "
+        f"commands replayed, journal {jbytes} bytes of arrays); digest "
+        f"{after:#x} = the digest before the kill")
+    cfg = drv.cfg
+    drv.close()
+    del drv
+    t = time.perf_counter()
+    fresh = make_index("ubis-cluster", cfg, stream.draw(1000),
+                       device=dev, seed=seed, round_size=2048,
+                       bg_ops_per_round=64, drain_per_tick=2048,
+                       workers=CLUSTER_WORKERS, backend="multiprocess")
+    start_s = time.perf_counter() - t
+    t = time.perf_counter()
+    fresh.restore(CLUSTER_CKPT)
+    res_s = time.perf_counter() - t
+    try:
+        got = fresh.snapshot().digest
+        if got != manifest["combined_digest"]:
+            fail(f"restored digest {got:#x} != the manifest's "
+                 f"{manifest['combined_digest']:#x}")
+        ids = fresh.search(q_ck, 10).ids
+        if not np.array_equal(ids, ids_ck):
+            fail(f"the restored cluster's search differs from the "
+                 f"original's at checkpoint time at "
+                 f"{int((ids != ids_ck).sum())} of {ids.size} ids")
+        for k, v in worker_launches(fresh).items():
+            launched[k] = launched.get(k, 0) + v
+        log(f"  a fresh {CLUSTER_WORKERS}-worker cluster (started in "
+            f"{start_s:.1f} s: two processes, init) restored the checkpoint "
+            f"in {res_s:.1f} s (files read, digests verified, load_state): "
+            f"digest = the manifest's; its 256-query search "
+            f"= the original's at checkpoint time, ids bit for bit; "
+            f"worker live {fresh.worker_live().tolist()}")
+    finally:
+        fresh.close()
+        shutil.rmtree(CLUSTER_CKPT, ignore_errors=True)
+    log(f"  3i-1 {time.perf_counter() - t0:.1f} s")
+    return launched
+
+
+def figskew_batches(seed: int, n: int, batches: int, salt: int):
+    """figskew/figdist's Zipf stream at d = 128 (16 clusters, Zipf 1.5,
+    centres N(0, 25 I)): ``batches`` batches of ``n // batches`` vectors
+    and 256 queries."""
+    K = SKEW["clusters"]
+    rng = np.random.default_rng(seed + salt)
+    cents = (rng.standard_normal((K, 128)) * 5).astype(np.float32)
+    queries = (cents[rng.integers(0, K, 256)]
+               + rng.standard_normal((256, 128))).astype(np.float32)
+    w = 1.0 / (np.arange(K) + 1) ** SKEW["zipf"]
+    per = n // batches
+    out = []
+    for _ in range(batches):
+        a = rng.choice(K, size=per, p=w / w.sum())
+        out.append((cents[a] + rng.standard_normal((per, 128)))
+                   .astype(np.float32))
+    return out, queries
+
+
+def seam_tape(idx, batches, queries) -> list:
+    """3i-2's per-op tape: each batch inserted, spills forced after
+    every third, a flush of at most 8 ticks, promotes forced, a search."""
+    tape = []
+    per = len(batches[0])
+    for b, vecs in enumerate(batches):
+        r = idx.insert(vecs, np.arange(b * per, (b + 1) * per))
+        tape.append(("insert", r.accepted, r.cached, r.rejected))
+        if b % 3 == 1:
+            tape.append(("spill", idx.force_spill(SEAM["spill"])))
+        for _ in range(8):
+            t = idx.tick()
+            tape.append(("tick", t.executed, t.drained, t.migrated,
+                         t.pq_retrained, t.spilled, t.promoted))
+            if t.executed == 0 and t.migrated == 0:
+                break
+        if b % 3 == 2:
+            tape.append(("promote", idx.force_promote(SEAM["promote"])))
+        res = idx.search(queries, 10)
+        tape.append(("search", res.ids.copy(), res.scores.copy()))
+    return tape
+
+
+def seam_check(dev, ops, ref, seed: int, log=say) -> dict:
+    """Phase 3i-2: ``workers=1`` on the ``LocalBackend`` (every message
+    through the codec) against ``ubis-sharded`` on the same mesh, the
+    tiered path's configuration over 3h-3's Zipf stream.  Returns the
+    launches of the cluster's run."""
+    from repro_torch import bridge
+    from repro_torch.api import make_index
+    from repro_torch.core.types import UBISConfig
+    t0 = time.perf_counter()
+    cfg = UBISConfig(dim=128, max_postings=65504, capacity=96, l_min=10,
+                     l_max=80, nprobe=32, cache_capacity=4096,
+                     max_ids=1 << 21, **quant_config(128), use_tier=True,
+                     tier_hot_max=SEAM["hot_max"])
+    batches, queries = figskew_batches(seed, 200_000, 10, salt=23)
+    kw = dict(device=dev, seed=seed, round_size=2048, bg_ops_per_round=64,
+              drain_per_tick=2048, migrate_per_tick=SKEW["migrate"],
+              pq_retrain_every=SEAM["retrain"], tier_moves_per_tick=256)
+    runs = {}
+    for name in ("ubis-sharded", "ubis-cluster"):
+        t = time.perf_counter()
+        if name == "ubis-sharded":
+            idx = make_index(name, cfg, batches[0], mesh=shard_mesh(dev),
+                             **kw)
+            drv = idx
+            legs = None
+        else:
+            idx = make_index(name, cfg, batches[0], workers=1,
+                             mesh_shape=(1, SHARDS), **kw)
+            rt = idx.backend.runtime(0)
+            drv = rt.drv
+            legs = {"n": 0}
+            handle = rt.handle
+
+            def checked(kind, payload, _handle=handle):
+                out = _handle(kind, payload)
+                if kind in ("tick_begin", "tick_exec", "tick_end",
+                            "cache_put", "force_spill", "force_promote",
+                            "load_state"):
+                    rt.drv.check_replicas()
+                    legs["n"] += 1
+                return out
+            rt.handle = checked
+        ops.reset_launch_counts()
+        with (held_on_path(ops, ref, SHARD_KERNELS["quant"], log)
+              if name == "ubis-cluster" else nullcontext()):
+            tape = seam_tape(idx, batches, queries)
+        launched = ops.launch_counts()
+        need_launched(f"3i-2's {name}", launched, SHARD_KERNELS["quant"])
+        drv.check_replicas()
+        snap = bridge.state_to_numpy(idx.snapshot())
+        stats = {k: float(idx.stats[k]) for k in (
+            "inserted", "rejected", "migrated", "pq_retrains",
+            "tier_spilled", "tier_promoted", "host_cached")}
+        runs[name] = (tape, snap, stats, launched)
+        log(f"  3i-2 {name}: {len(tape)} ops, stats {json.dumps(stats)}, "
+            f"{time.perf_counter() - t:.1f} s"
+            + (f"; replicas identical after each of {legs['n']} tick legs "
+               "and tier writes" if legs else ""))
+        idx.close()
+        del idx, drv
+        torch.cuda.empty_cache()
+    (ta, sa, xa, _), (tb, sb, xb, launched) = (runs["ubis-sharded"],
+                                               runs["ubis-cluster"])
+    if len(ta) != len(tb):
+        fail(f"3i-2 tapes differ in length: {len(ta)} vs {len(tb)}")
+    for i, (a, b) in enumerate(zip(ta, tb)):
+        same = (a[0] == b[0] and (np.array_equal(a[1], b[1])
+                                  and np.array_equal(a[2], b[2])
+                                  if a[0] == "search" else a == b))
+        if not same:
+            fail(f"3i-2 tapes differ at op {i}: {a[:4]} vs {b[:4]}")
+    bad = [k for k in sa if not np.array_equal(sa[k], sb[k])]
+    if bad:
+        fail(f"3i-2 snapshots differ in {bad}")
+    if xa != xb:
+        fail(f"3i-2 stats differ: {xa} vs {xb}")
+    if not xb["migrated"] > 0 or not xb["pq_retrains"] > 0 \
+            or not xb["tier_spilled"] > 0:
+        fail(f"3i-2 ran no migration, re-train or spill: {xb}")
+    log(f"  3i-2: the per-op tape ({len(tb)} ops: counts, search ids and "
+        f"scores), every snapshot field and the stats identical; migrated "
+        f"{xb['migrated']:.0f}, re-trains {xb['pq_retrains']:.0f}, spilled "
+        f"{xb['tier_spilled']:.0f}; 3i-2 {time.perf_counter() - t0:.1f} s")
+    return launched
+
+
+def figdist_runs(dev, ops, seed: int, log=say) -> dict:
+    """Phase 3i-3: figdist's stream into ``workers=2`` over the local and
+    the multiprocess backend.  Returns the launches (in-process and in
+    the worker processes)."""
+    from repro_torch.api import make_index
+    from repro_torch.core import metrics
+    from repro_torch.core.types import UBISConfig
+    t0 = time.perf_counter()
+    cfg = UBISConfig(dim=128, max_postings=65504, capacity=96, l_min=10,
+                     l_max=80, nprobe=32, cache_capacity=4096,
+                     max_ids=1 << 21)
+    batches, queries = figskew_batches(seed, FIGDIST["n"],
+                                       FIGDIST["batches"], salt=29)
+    per = len(batches[0])
+    launched: dict = {}
+    runs = {}
+    for backend in ("local", "multiprocess"):
+        t = time.perf_counter()
+        ops.reset_launch_counts()
+        idx = make_index("ubis-cluster", cfg, batches[0], device=dev,
+                         seed=seed, workers=2, backend=backend,
+                         round_size=2048, bg_ops_per_round=64,
+                         drain_per_tick=2048, spread_per_tick=256)
+        try:
+            if backend == "multiprocess":
+                worker_launches(idx, reset=True)
+            tape = []
+            for b, vecs in enumerate(batches):
+                r = idx.insert(vecs, np.arange(b * per, (b + 1) * per))
+                ticks = idx.flush(max_ticks=FIGDIST["flush"])
+                tape.append((r.accepted, r.cached, r.rejected, ticks,
+                             idx.worker_live().tolist()))
+            found = idx.search(queries, 10, nprobe=FIGDIST["nprobe"])
+            truth = idx.exact(queries, 10)
+            rec = metrics.recall_at_k(found.ids, truth.ids)
+            live = idx.worker_live()
+            spread = metrics.occupancy_spread(live)
+            digest = idx.snapshot().digest
+            got = (worker_launches(idx) if backend == "multiprocess"
+                   else ops.launch_counts())
+            need_launched(f"3i-3 {backend}", got, SHARD_KERNELS["float"])
+            for k, v in got.items():
+                launched[k] = launched.get(k, 0) + v
+            runs[backend] = (tape, digest, found.ids, found.scores)
+            log(f"  3i-3 {backend}: recall@10 at nprobe {FIGDIST['nprobe']} "
+                f"{rec:.4f} (gate >= 0.9), worker live {live.tolist()}, "
+                f"max/min {spread['occ_ratio']:.3f} (gate <= 1.5), migrated "
+                f"{idx.stats['migrated']:.0f}, rejected "
+                f"{idx.stats['rejected']:.0f}, digest {digest:#x}, "
+                f"{time.perf_counter() - t:.1f} s")
+            if not rec >= 0.9:
+                fail(f"3i-3 {backend}: recall@10 {rec:.4f} < 0.9")
+            if not spread["occ_ratio"] <= 1.5:
+                fail(f"3i-3 {backend}: max/min {spread['occ_ratio']:.3f} "
+                     "> 1.5")
+        finally:
+            idx.close()
+        torch.cuda.empty_cache()
+    (ta, da, ia, sa), (tb, db, ib, sb) = runs["local"], runs["multiprocess"]
+    if ta != tb or da != db or not np.array_equal(ia, ib) \
+            or not np.array_equal(sa, sb):
+        fail(f"3i-3: the multiprocess run differs from the local one "
+             f"(tapes equal {ta == tb}, digests {da:#x} / {db:#x})")
+    log(f"  3i-3: the local and multiprocess tapes (per batch: counts, "
+        f"ticks, worker live), final digests and search ids and scores "
+        f"equal; 3i-3 {time.perf_counter() - t0:.1f} s")
+    return launched
 
 
 # ---------------------------------------------------------------------------
@@ -3259,10 +3684,10 @@ def main() -> None:
         f"quant {paths['quant'][2]}")
     tier_checks(tdrv, tsecs, paths["quant"][4], len(trecalls))
 
-    say("phase 3c: the quant path on the float path's data (1 step, not "
-        "gated)")
+    say(f"phase 3c: the quant path on the float path's data at {QUANT_3C:,} "
+        "vectors (1 step, not gated)")
     drv, *_ = main_path(
-        dev, n=1_000_000, dim=128, max_postings=65504, cache_capacity=4096,
+        dev, n=QUANT_3C, dim=128, max_postings=65504, cache_capacity=4096,
         steps=1, fresh=20000, dels=10000, queries=256, chunk=20000,
         seed=args.seed, round_size=2048, bg_ops=64, quant=True, gate=False)
     del drv
@@ -3291,6 +3716,19 @@ def main() -> None:
     launched = skew_runs(dev, ops, args.seed)
     counts = {k: counts.get(k, 0) + v for k, v in launched.items()}
     say(f"  phase 3h: {time.perf_counter() - t:.1f} s")
+
+    mode = compute_mode()
+    say(f"phase 3i: the cluster plane, make_index('ubis-cluster'); compute "
+        f"mode {mode}")
+    if mode != "Default":
+        fail(f"compute mode {mode}: two worker processes need two CUDA "
+             "contexts on the card (Default)")
+    t = time.perf_counter()
+    for launched in (cluster_float_path(dev, ops, args.seed),
+                     seam_check(dev, ops, ref, args.seed),
+                     figdist_runs(dev, ops, args.seed)):
+        counts = {k: counts.get(k, 0) + v for k, v in launched.items()}
+    say(f"  phase 3i: {time.perf_counter() - t:.1f} s")
 
     say("phase 4: kernel times on the main paths' inputs")
     fdrv, fq, _, fstream, _ = paths["float"]

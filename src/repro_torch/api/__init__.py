@@ -7,7 +7,7 @@
     res = idx.search(queries, k=10)                  # SearchResult
 
 Engines: ``ubis`` | ``spfresh`` | ``spann`` | ``freshdiskann`` |
-``ubis-sharded``, all conforming to :class:`StreamingIndex`, so an engine
+``ubis-sharded`` | ``ubis-cluster``, all conforming to :class:`StreamingIndex`, so an engine
 comparison is one loop over names.  ``list_engines()`` returns each engine's
 :class:`EngineSpec` with its capability flags.
 

@@ -24,7 +24,10 @@ engines (ubis/spfresh) use them for k-means seeding only (NOT inserted);
 the build-once engines (spann, freshdiskann) ingest them under
 ``seed_ids`` (default ``arange``).  ``ubis-sharded`` takes a ``mesh``
 (``distributed.sharding.make_mesh``: S logical shards of one device);
-``ubis-cluster`` raises until its slice is ported.
+``ubis-cluster`` runs ``ShardedUBISDriver`` workers behind the command
+protocol (``workers``, ``backend="local" | "multiprocess"``,
+``mesh_shape``: each worker's logical shards), its draws one per worker
+when ``workers > 1`` (``cluster/coordinator.py``).
 """
 from __future__ import annotations
 
@@ -46,11 +49,19 @@ _UBIS_KW = _DRIVER_KW | {"fused_tick"}
 _SHARDED_KW = _DRIVER_KW | {"mesh", "shard_cache_scan", "rebalance",
                             "rebalance_watermark", "rebalance_ratio",
                             "migrate_per_tick", "route_alpha"}
+_CLUSTER_KW = frozenset({
+    "seed", "round_size", "bg_ops_per_round", "drain_per_tick",
+    "insert_retries", "gc_lag", "reassign_after_split",
+    "pq_retrain_every", "tier_moves_per_tick", "tier_rerank_host",
+    "obs", "shard_cache_scan", "rebalance", "rebalance_watermark",
+    "rebalance_ratio", "migrate_per_tick", "route_alpha", "workers",
+    "backend", "worker_devices", "mesh_shape", "spread_ratio",
+    "spread_per_tick", "rpc_timeout"}) | _PORT_KW
 _SPANN_KW = frozenset({"seed", "round_size", "obs"}) | _PORT_KW
 _GRAPH_KW = frozenset({"max_nodes", "degree", "beam", "alpha",
                        "consolidate_every", "obs", "device"})
 #: engines of the JAX package's registry whose slice is not ported yet
-NOT_PORTED = ("ubis-cluster",)
+NOT_PORTED = ()
 
 
 def _pick(kw: dict, allowed: frozenset) -> dict:
@@ -96,6 +107,11 @@ def _build_ubis_mode(mode):
 def _build_sharded(cfg, seed_vectors, seed_ids, kw):
     from .sharded_driver import ShardedUBISDriver
     return ShardedUBISDriver(_with_mode(cfg, "ubis"), seed_vectors, **kw)
+
+
+def _build_cluster(cfg, seed_vectors, seed_ids, kw):
+    from ..cluster.coordinator import ClusterCoordinator
+    return ClusterCoordinator(_with_mode(cfg, "ubis"), seed_vectors, **kw)
 
 
 def _seed_arrays(seed_vectors, seed_ids):
@@ -149,6 +165,14 @@ _REGISTRY: dict[str, EngineSpec] = {spec.name: spec for spec in (
         description="ShardedUBISDriver: host orchestration over the "
                     "sharded programs (S logical shards of one device)",
         build=_build_sharded, kwargs=_SHARDED_KW,
+        supports_tier=True, supports_pq=True, supports_shards=True,
+        audit="state"),
+    EngineSpec(
+        name="ubis-cluster",
+        description="coordinator/worker cluster plane: all planners on "
+                    "the coordinator, ShardedUBISDriver workers behind "
+                    "the serializable command protocol",
+        build=_build_cluster, kwargs=_CLUSTER_KW,
         supports_tier=True, supports_pq=True, supports_shards=True,
         audit="state"),
 )}

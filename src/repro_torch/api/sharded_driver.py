@@ -77,9 +77,7 @@ class ShardedUBISDriver:
     ``mesh``: a ``distributed.sharding.Mesh`` (default
     ``default_mesh(cfg, device)``); its device is the driver's.  The other
     knobs are the JAX package's, and ``device``, ``kmeans_init``,
-    ``pq_init`` and ``pq_keys`` are ``UBISDriver``'s.
-    ``tier_rerank_host=False`` (the cluster plane's ADC-only cold read)
-    raises ``NotImplementedError``."""
+    ``pq_init`` and ``pq_keys`` are ``UBISDriver``'s."""
 
     def __init__(self, cfg: UBISConfig, seed_vectors=None, *,
                  mesh: Optional[Mesh] = None, seed: int = 0,
@@ -103,10 +101,6 @@ class ShardedUBISDriver:
         if not cfg.is_ubis:
             raise ValueError("ShardedUBISDriver is UBIS-mode only "
                              "(SPFresh's lock model is single-device)")
-        if not tier_rerank_host:
-            raise NotImplementedError(
-                "tier_rerank_host=False (the ADC-only cold read) belongs "
-                "to the cluster slice of the port")
         if seed_vectors is None:
             raise ValueError("seed_vectors required (used for k-means seeds)")
         self.cfg = cfg
@@ -153,7 +147,8 @@ class ShardedUBISDriver:
         # global view; per-shard accounting rides on contiguous pid blocks
         self.tier = (tier_mod.TierManager(
             cfg, self.device, max_moves=int(tier_moves_per_tick),
-            obs=self.obs) if cfg.use_tier else None)
+            rerank_host=tier_rerank_host, obs=self.obs)
+            if cfg.use_tier else None)
         self.tier_async = bool(tier_async)
         self._insert_fn = make_sharded_insert(cfg, self.mesh,
                                               route_alpha=float(route_alpha))
@@ -323,7 +318,8 @@ class ShardedUBISDriver:
         t0 = time.perf_counter()
         # cold tier + host rerank: widen the final candidate set to
         # rerank_k so the exact host pass has room to reorder
-        k_eff = max(k, self.cfg.rerank_k) if self.tier is not None else k
+        k_eff = (max(k, self.cfg.rerank_k)
+                 if self.tier is not None and self.tier.rerank_host else k)
         key = (k_eff, nprobe)
         fn = self._search_fns.get(key)
         if fn is None:

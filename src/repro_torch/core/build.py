@@ -29,24 +29,35 @@ SAMPLE_CAP = 20000     # k-means sample: the first rows of the seed vectors
 TARGET_FILL = 0.7      # seeded postings start at this share of l_max
 
 
+def cluster_means(rows: torch.Tensor, assign: torch.Tensor, k: int):
+    """(means, counts) of the ``rows`` (host float32) of each of ``k``
+    clusters by ``assign`` (any device): one ``index_add_`` on the host,
+    in row order.  A card's ``index_add_`` adds floats in no fixed order
+    (atomics), so two runs on a card could build indexes that differ in a
+    centroid's last bit and then in every later decision; on the host a
+    run on the card computes the CPU run's sums bit for bit (a worker's
+    replay and two clusters on the same stream build the same index)."""
+    a = assign.to("cpu", torch.int64)
+    sums = torch.zeros((k,) + rows.shape[1:], dtype=torch.float32)
+    sums.index_add_(0, a, rows)
+    counts = torch.zeros((k,), dtype=torch.float32)
+    counts.index_add_(0, a, torch.ones((a.shape[0],), dtype=torch.float32))
+    return sums / torch.clamp(counts, min=1.0)[:, None], counts
+
+
 def kmeans(points: torch.Tensor, k: int, iters: int,
            init_idx: torch.Tensor) -> torch.Tensor:
     """Plain Lloyd k-means from ``points[init_idx]``; empty clusters keep
-    their previous centroid.  The centroid sums use ``index_add_``, whose
-    float additions run in an unspecified order on a card (atomics): the
-    result matches the JAX package to fp32 rounding, not bit for bit."""
+    their previous centroid.  The assignment runs on the points' device,
+    the centroid sums on the host (``cluster_means``)."""
     points = points.to(torch.float32)
-    n, d = points.shape
+    host = points.cpu()
     cents = points[init_idx.to(torch.int64)]
     for _ in range(iters):
         assign = torch.argmin(ref.centroid_score(points, cents), dim=-1)
-        sums = torch.zeros((k, d), dtype=torch.float32, device=points.device)
-        sums.index_add_(0, assign, points)
-        counts = torch.zeros((k,), dtype=torch.float32, device=points.device)
-        counts.index_add_(0, assign, torch.ones_like(assign,
-                                                     dtype=torch.float32))
-        new = sums / torch.clamp(counts, min=1.0)[:, None]
-        cents = torch.where(counts[:, None] > 0, new, cents)
+        new, counts = cluster_means(host, assign, k)
+        cents = torch.where(counts[:, None].to(cents.device) > 0,
+                            new.to(cents.device), cents)
     return cents
 
 

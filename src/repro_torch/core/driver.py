@@ -114,9 +114,9 @@ class UBISDriver:
     With ``cfg.use_tier``: ``tier_moves_per_tick``, the planner's batch
     width; ``tier_async``, dispatch the tick's spill/promote copies at
     tick start (overlapping the background round) and commit them at
-    tick end.  The host exact rerank of spilled candidates is always on
-    (``tier_rerank_host=False``, the cluster plane's ADC-only cold read,
-    raises).  ``fused_tick=True`` (UBIS mode only) selects and marks the
+    tick end; ``tier_rerank_host``, the host exact rerank of spilled
+    candidates (off: spilled candidates keep their ADC scores, the
+    cluster plane's ADC-only cold read).  ``fused_tick=True`` (UBIS mode only) selects and marks the
     next batch on the device (``balance.mark_round``) instead of the
     ``detect()`` host round-trip: the kinds/pids batch stays on the
     device and feeds the next tick's ``background_round``; SPFresh's
@@ -136,10 +136,6 @@ class UBISDriver:
                  tier_rerank_host: bool = True, tier_async: bool = False,
                  obs: Optional[Obs] = None,
                  obs_profile_dir: Optional[str] = None):
-        if not tier_rerank_host:
-            raise NotImplementedError(
-                "tier_rerank_host=False (the ADC-only cold read) belongs "
-                "to a later slice of the port")
         if seed_vectors is None:
             raise ValueError("seed_vectors required (used for k-means seeds)")
         self.cfg = cfg
@@ -186,7 +182,8 @@ class UBISDriver:
         # cold tier (cfg.use_tier): host pool + planner + copy stream
         self.tier = (tier_mod.TierManager(
             cfg, self.device, max_moves=int(tier_moves_per_tick),
-            obs=self.obs) if cfg.use_tier else None)
+            rerank_host=tier_rerank_host, obs=self.obs)
+            if cfg.use_tier else None)
         self.tier_async = bool(tier_async)
         self._bg_ran = False
 
@@ -304,7 +301,8 @@ class UBISDriver:
         t0 = time.perf_counter()
         # the host rerank needs the full rerank budget: the device top-k
         # orders spilled candidates by their ADC scores
-        k_eff = max(k, self.cfg.rerank_k) if self.tier is not None else k
+        k_eff = (max(k, self.cfg.rerank_k)
+                 if self.tier is not None and self.tier.rerank_host else k)
         found, scores, probe = search_mod.search(
             self.state, self.cfg, self._dev(queries), k_eff, nprobe)
         disp = SearchDispatch(queries=queries, k=k, found=found,

@@ -455,7 +455,7 @@ class TierManager:
     (updated in place) and the counts it moved."""
 
     def __init__(self, cfg: UBISConfig, device, *, max_moves: int = 32,
-                 obs=None):
+                 rerank_host: bool = True, obs=None):
         self.cfg = cfg
         self.device = torch.device(device)
         on_card = self.device.type == "cuda"
@@ -466,11 +466,26 @@ class TierManager:
                                    max_moves=max_moves)
         self._counts = np.zeros(cfg.max_postings, np.int64)
         self._stream = torch.cuda.Stream(self.device) if on_card else None
+        self.rerank_host = bool(rerank_host)
         self.obs = obs
+        # every commit decision (reconcile and the forced, retrain-pinned
+        # paths) is also kept here, so a cluster worker can drain it and
+        # the coordinator re-emit it on its own trace plane; cleared on
+        # ``adopt``
+        self.commit_log: list = []
 
     def _emit(self, kind: str, **fields) -> None:
         if self.obs is not None:
             self.obs.emit(kind, **fields)
+
+    def _commit(self, **fields) -> None:
+        self.commit_log.append(fields)
+        self._emit("tier_commit", **fields)
+
+    def drain_commits(self) -> list:
+        """The commits since the last drain (and forget them)."""
+        out, self.commit_log = self.commit_log, []
+        return out
 
     # ---- copies between the card and the pool -------------------------
 
@@ -639,8 +654,7 @@ class TierManager:
                 self.pool.put(int(s_pids[i]), plan.spill_tiles[i])
             state = spill_round(state, cfg, torch.from_numpy(s_pids).to(dev),
                                 torch.from_numpy(s_valid).to(dev))
-        self._emit(
-            "tier_commit",
+        self._commit(
             spilled=[int(p) for p in s_pids[s_valid]],
             promoted=[int(p) for p in p_pids[p_valid]],
             dropped_spills=[{"pid": int(p), "reason": "stale-signature"}
@@ -706,9 +720,9 @@ class TierManager:
                                 torch.ones(len(chunk), dtype=torch.bool,
                                            device=dev))
         if reason and len(pids):
-            self._emit("tier_commit", spilled=[int(p) for p in pids],
-                       promoted=[], dropped_spills=[], dropped_promotes=[],
-                       reason=reason)
+            self._commit(spilled=[int(p) for p in pids], promoted=[],
+                         dropped_spills=[], dropped_promotes=[],
+                         reason=reason)
         return state, len(pids)
 
     def _promote(self, state: IndexState, pids, reason: str = ""):
@@ -725,9 +739,9 @@ class TierManager:
                                   torch.ones(len(chunk), dtype=torch.bool,
                                              device=dev))
         if reason and len(pids):
-            self._emit("tier_commit", spilled=[],
-                       promoted=[int(p) for p in pids], dropped_spills=[],
-                       dropped_promotes=[], reason=reason)
+            self._commit(spilled=[], promoted=[int(p) for p in pids],
+                         dropped_spills=[], dropped_promotes=[],
+                         reason=reason)
         return state, len(pids)
 
     # ---- host-side exact serving --------------------------------------
@@ -735,8 +749,9 @@ class TierManager:
     def rerank(self, queries, found, scores, loc, tier_spilled):
         """Host exact rerank of a search's final candidate set; ``loc``
         and ``tier_spilled`` are the index's as of the search's dispatch.
-        Returns (found, scores, spilled candidates reranked)."""
-        if not len(self.pool):
+        Returns (found, scores, spilled candidates reranked); with
+        ``rerank_host`` off, the candidates unchanged."""
+        if not self.rerank_host or not len(self.pool):
             return np.asarray(found), np.asarray(scores), 0
         return host_rerank(found, scores, queries, self.pool, loc,
                            tier_spilled, self.cfg.capacity)
@@ -778,6 +793,7 @@ class TierManager:
         self.pool = HostTierPool(self.pool.tile_shape, self.pool.dtype,
                                  pin=self.pool.pin)
         self._counts[:] = 0
+        self.commit_log = []
         sp = np.flatnonzero((state.tier_spilled & state.allocated)
                             .cpu().numpy())
         state.tier_spilled = torch.zeros_like(state.tier_spilled)

@@ -97,30 +97,24 @@ def train_codebooks(sample: torch.Tensor, mask: torch.Tensor,
     sample (S, d); mask (S,) bool; init (m, ksub, dsub) warm start.
     Empty clusters keep their previous centroid.  The assignment step is
     ``ops.kmeans_assign`` over all m subspaces in one launch; the
-    centroid sums are one ``index_add_`` into (m, ksub + 1) rows, where
+    centroid sums are one host ``index_add_`` into (m, ksub + 1) rows
+    (``build.cluster_means``: a card's adds in no fixed order), where
     row ``ksub`` of each subspace takes the masked points and is sliced
-    off (the JAX package drops them with an out-of-bounds scatter).  On
-    a card ``index_add_`` adds in no fixed order, so two runs may differ
-    in the last bit of a codebook; on the CPU, and on integer-valued
-    data anywhere, the sums are exact."""
+    off (the JAX package drops them with an out-of-bounds scatter)."""
+    from ..core.build import cluster_means
     m, ksub, dsub = init.shape
     pts = _subspaces(sample, m)                              # (m, S, dsub)
-    rows = pts.reshape(-1, dsub)                             # a copy
+    rows = pts.reshape(-1, dsub).float().cpu()
     dev = sample.device
     offs = torch.arange(m, device=dev)[:, None] * (ksub + 1)
-    ones = torch.ones((rows.shape[0],), dtype=torch.float32, device=dev)
     cents = init.float()
     for _ in range(iters):
         assign, _ = ops.kmeans_assign(pts, cents, mask)
         tgt = (torch.where(mask[None, :], assign.long(), ksub)
                + offs).reshape(-1)
-        sums = torch.zeros((m * (ksub + 1), dsub), dtype=torch.float32,
-                           device=dev).index_add_(0, tgt, rows)
-        counts = torch.zeros((m * (ksub + 1),), dtype=torch.float32,
-                             device=dev).index_add_(0, tgt, ones)
-        sums = sums.view(m, ksub + 1, dsub)[:, :ksub]
-        counts = counts.view(m, ksub + 1)[:, :ksub]
-        new = sums / torch.clamp(counts, min=1.0)[..., None]
+        new, counts = cluster_means(rows, tgt, m * (ksub + 1))
+        new = new.view(m, ksub + 1, dsub)[:, :ksub].to(dev)
+        counts = counts.view(m, ksub + 1)[:, :ksub].to(dev)
         cents = torch.where(counts[..., None] > 0, new, cents)
     return cents
 

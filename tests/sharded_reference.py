@@ -1,6 +1,8 @@
 """The JAX package's sharded plane on 8 fake host devices, mesh (2, 4):
-every sharded program on one float and one quant state, and two
-``ShardedUBISDriver`` streams.  Run as a script (``python
+every sharded program on one float and one quant state, two
+``ShardedUBISDriver`` streams, and one ``ClusterCoordinator`` stream
+with two workers of two shards each (``mesh_shape=(1, 2)``: the only
+layout in which the coordinator's in-worker rebalance legs run).  Run as a script (``python
 tests/sharded_reference.py OUT.npz``) with
 ``XLA_FLAGS=--xla_force_host_platform_device_count=8``, as
 ``tests/test_distributed.py`` runs its programs; ``tests/
@@ -10,7 +12,8 @@ outputs, so the port replays the same calls.
 
 Keys: ``{tag}/{field}`` for a state after a program, ``o/{tag}/{name}``
 for a program's inputs and outputs, ``o/{run}/stats`` (JSON) for a
-driver run.
+driver run; ``cluster{w}/{field}`` for worker w's state after the
+cluster stream.
 """
 import dataclasses
 import json
@@ -26,6 +29,9 @@ DRIVER_CFG = dict(dim=16, max_postings=256, capacity=96, max_ids=1 << 14)
 DRIVER_KW = dict(round_size=256, bg_ops_per_round=8, gc_lag=4)
 STAT_KEYS = ("inserted", "deleted", "rejected", "migrated", "bg_ops",
              "bg_gc", "host_cached", "drained", "queries", "search_results")
+#: the cluster stream: two workers, each (1, 2) shards of its 128 postings
+CLUSTER_KW = dict(workers=2, mesh_shape=(1, 2), spread_per_tick=256,
+                  **DRIVER_KW)
 
 
 def clustered(seed, n, k=12, scale=5.0, rounded=False):
@@ -68,6 +74,22 @@ def zipf_stream():
                 ("flush", 20)]
     ops.append(("flush", 60))
     return data[:400], ops, draw(64)
+
+
+def cluster_stream():
+    """The Zipf stream, then deletes of a third of its ids and a flush:
+    the shrunken worker is refilled by the spread balance."""
+    seeds, ops, queries = zipf_stream()
+    return seeds, ops + [("delete", np.arange(0, 4000, 3)),
+                         ("flush", 40)], queries
+
+
+def rebalance_triggers(obs) -> dict:
+    """How many ``rebalance`` events each trigger raised."""
+    out: dict = {}
+    for e in obs.events("rebalance"):
+        out[e["trigger"]] = out.get(e["trigger"], 0) + 1
+    return out
 
 
 def drive(drv, ops):
@@ -242,6 +264,25 @@ def main(path):
              exact=drv.exact(queries, 10).ids, live=drv.live_count(),
              occupancy=drv.shard_occupancy(), pressure=drv.shard_pressure(),
              stats=json.dumps({k: float(drv.stats[k]) for k in STAT_KEYS}))
+
+    # ---- the cluster plane: two workers of two shards ------------------
+    from repro.cluster import ClusterCoordinator
+    from repro.obs import Obs
+    seeds, ops, queries = cluster_stream()
+    obs = Obs()
+    coord = ClusterCoordinator(dcfg, seeds, obs=obs, **CLUSTER_KW)
+    drive(coord, ops)
+    snap = coord.snapshot()
+    for w, st in enumerate(snap.states):
+        save(f"cluster{w}", st)
+    res = coord.search(queries, 10)
+    keep("cluster", ids=res.ids, scores=res.scores,
+         exact=coord.exact(queries, 10).ids, live=coord.worker_live(),
+         digests=np.array(snap.digests, np.uint64),
+         occupancy=coord.shard_occupancy(),
+         triggers=json.dumps(rebalance_triggers(obs)),
+         stats=json.dumps({k: float(coord.stats[k]) for k in STAT_KEYS}))
+    coord.close()
     np.savez(path, **out)
 
 

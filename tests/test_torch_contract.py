@@ -10,6 +10,13 @@ against the live delta, tier commits against the stats), and with
 ``tests/test_contract_properties.py``: every engine untiered at seed 0;
 the tier-capable engines tiered (``TIER_KW``) at seeds 0, 1 and 2; every
 engine through the port's ``QueuedIndex``; ``ubis`` queued and tiered.
+``ubis-cluster`` (one worker on the ``LocalBackend``, every message
+through the wire codec) runs every case of ``ENGINES``.  The JAX
+package's own tiered ``ubis-sharded`` and ``ubis-cluster`` cases fail
+here (jax's ``ShardingTypeError``, ROADMAP §3), so the port's tiered
+sharded and cluster cases are held by the harness's own oracle: the
+live multiset after every flush, recall against ``exact``, the trace
+audit and the snapshot -> restore round trip.
 
 The harness reads a snapshot as the JAX package's ``IndexState`` (its
 ``live_map`` runs the JAX ``unpack_status`` on it), so a thin adapter

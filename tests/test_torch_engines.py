@@ -1,8 +1,8 @@
 """The port's front door and the rest of its single-device plane, held
 against the JAX package on the same inputs.
 
-* the registry: the four single-device engines with the JAX specs'
-  capability flags and audit tiers; the sharded engines raise;
+* the registry: every engine with the JAX spec's capability flags,
+  audit tier and kwargs (plus the port's ``device`` and draws);
 * ``freshdiskann``: on integer-valued data (exact distances, so tie
   order is compared too) the graph (edges, tombstones, ids, entry), the
   search and ``exact`` ids and ``memory_bytes`` equal the JAX engine's
@@ -74,7 +74,8 @@ FLAGS = ("supports_tier", "supports_pq", "supports_shards", "updatable",
 
 
 @pytest.mark.parametrize("engine", ["ubis", "spfresh", "spann",
-                                    "freshdiskann", "ubis-sharded"])
+                                    "freshdiskann", "ubis-sharded",
+                                    "ubis-cluster"])
 def test_registry_spec_matches_jax(engine):
     spec, jspec = engine_spec(engine), j_engine_spec(engine)
     assert spec.name == jspec.name
@@ -88,14 +89,18 @@ def test_registry_spec_matches_jax(engine):
 
 
 def test_list_engines_and_the_unported_engines():
+    """Every engine of the JAX registry is ported (``NOT_PORTED`` is
+    empty, in the JAX registry's order); an unknown name raises."""
+    from repro.api import ENGINES as J_ENGINES
+    from repro_torch.api.registry import NOT_PORTED
+    assert NOT_PORTED == ()
     assert ENGINES == ("ubis", "spfresh", "spann", "freshdiskann",
-                       "ubis-sharded")
+                       "ubis-sharded", "ubis-cluster") == J_ENGINES
     assert tuple(s.name for s in list_engines()) == ENGINES
     cfg = UBISConfig(dim=8, max_postings=64, capacity=32, l_min=4, l_max=24)
     seeds = np.zeros((60, 8), np.float32)
-    for engine in ("ubis-cluster", "nope"):
-        with pytest.raises(ValueError):
-            make_index(engine, cfg, seeds, device="cpu")
+    with pytest.raises(ValueError, match="unknown engine"):
+        make_index("nope", cfg, seeds, device="cpu")
 
 
 @pytest.mark.parametrize("engine", ENGINES)

@@ -5,7 +5,8 @@
 * No ``torch.topk`` anywhere in the port: its tie order is not the
   reference's lowest-index-first (``ref.stable_topk`` is the one top-k).
 * The entry points (the drivers, ``make_index``, ``get_model``,
-  ``EmbeddingServer``, ``RetrievalServer``) run on the card by default
+  ``EmbeddingServer``, ``RetrievalServer``, the cluster coordinator and
+  a worker's ``init``) run on the card by default
   and raise without one unless the caller asks for the CPU; the planes
   of later slices (the decode path) raise ``NotImplementedError``
   instead of being ignored, and the quant plane (``use_pq``), the cold
@@ -60,7 +61,10 @@ for m in ("repro_torch.quant.pq", "repro_torch.models.transformer",
           "repro_torch.kernels.pq_scan", "repro_torch.core.sharded",
           "repro_torch.api.sharded_driver", "repro_torch.api.rebalance",
           "repro_torch.distributed.sharding",
-          "repro_torch.distributed.straggler"):
+          "repro_torch.distributed.straggler",
+          "repro_torch.cluster.worker", "repro_torch.cluster.coordinator",
+          "repro_torch.cluster.backend", "repro_torch.cluster.protocol",
+          "repro_torch.checkpoint", "repro_torch.checkpoint.manager"):
     assert m in mods, (m, mods)
 print(len(mods))
 """
@@ -72,7 +76,7 @@ def test_port_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", _GUARD], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.split()[-1]) >= 35      # every module was walked
+    assert int(out.stdout.split()[-1]) >= 41      # every module was walked
 
 
 def test_no_torch_topk_in_the_port():
@@ -99,6 +103,13 @@ def test_entry_points_raise_without_cuda():
         EmbeddingServer(ServeConfig(reduced=True))
     with pytest.raises(RuntimeError, match="CUDA"):
         RetrievalServer(ServeConfig(reduced=True))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_index("ubis-cluster", cfg, seeds)
+    from repro_torch.cluster.worker import WorkerRuntime
+    from repro_torch.cluster.protocol import cfg_to_payload
+    with pytest.raises(RuntimeError, match="CUDA"):
+        WorkerRuntime().handle("init", {"cfg": cfg_to_payload(cfg),
+                                        "seed_vectors": seeds})
     assert make_index("spfresh", cfg, seeds, device="cpu").cfg.mode == \
         "spfresh"
     assert SPFreshDriver(cfg, seeds, device="cpu").cfg.mode == "spfresh"
@@ -162,8 +173,11 @@ def test_every_kernel_source_is_built():
 
 
 def test_unknown_engine_raises():
+    """No engine of the JAX registry is refused as unported any more
+    (``ubis-cluster`` was the last); a name outside it raises."""
     cfg = UBISConfig(dim=8, max_postings=64, capacity=32, l_min=4, l_max=24)
-    for engine in ("ubis-cluster",):
-        with pytest.raises(ValueError, match="not ported"):
-            make_index(engine, cfg, np.zeros((60, 8), np.float32),
-                       device="cpu")
+    assert make_index("ubis-cluster", cfg, np.zeros((60, 8), np.float32),
+                      device="cpu").n_workers == 1
+    with pytest.raises(ValueError, match="unknown engine"):
+        make_index("ubis-cluster-2", cfg, np.zeros((60, 8), np.float32),
+                   device="cpu")

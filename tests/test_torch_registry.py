@@ -5,8 +5,8 @@ against the JAX driver: both packages get the same seed vectors, the
 same k-means initial indices (the JAX draw, injected into the port),
 the same knobs and the stream of ``tests/test_torch_driver.py``, and must
 end with the same live ids and the same foreground and background
-counts.  The knob value the port does not implement
-(``tier_rerank_host=False``) raises, ``obs_profile_dir`` captures the
+counts.  ``tier_rerank_host=False`` (the ADC-only cold read, once
+refused) reaches the tier manager, ``obs_profile_dir`` captures the
 first tick's trace, and the port's observability plane answers the
 contract harness's ``enabled`` question, so the harness's trace audit
 covers port engines.
@@ -82,9 +82,18 @@ def test_knobs_change_the_port_program():
 
 @pytest.mark.parametrize("kw", [dict(tier_rerank_host=False)])
 def test_unported_knob_values_raise(kw):
+    """No knob value is refused any more: ``tier_rerank_host=False`` was
+    the last, and now reaches the tier manager of both drivers
+    (``tests/test_torch_cluster.py`` holds its answers to the JAX
+    driver's)."""
+    import dataclasses
     tcfg, seeds, init = _seeds_and_init("ubis")
-    with pytest.raises(NotImplementedError):
-        make_index("ubis", tcfg, seeds, device="cpu", kmeans_init=init, **kw)
+    tcfg = dataclasses.replace(tcfg, use_pq=True, pq_m=4, pq_ksub=16,
+                               use_tier=True)
+    for engine in ("ubis", "ubis-sharded"):
+        td = make_index(engine, tcfg, seeds, device="cpu", kmeans_init=init,
+                        **kw)
+        assert td.tier.rerank_host is False
 
 
 def test_obs_profile_dir_traces_the_first_tick_only(tmp_path):

@@ -8,9 +8,14 @@ sharded program, and it drives ``ShardedUBISDriver`` over a churn stream
 and over ``tests/test_rebalance.py:297``'s Zipf stream; one npz holds the
 inputs, the outputs and the states (pytest-xdist workers share it).
 
+It also drives a two-worker ``ClusterCoordinator`` with two shards a
+worker (``mesh_shape=(1, 2)``), the layout in which the coordinator's
+in-worker rebalance legs (``plan_inputs``, the migrate round) run.
+
 The port replays the same calls on S = 4 logical shards of the CPU
 (``make_mesh((2, 4), ...)``): every program on the same starting state,
-each driver with the JAX draws injected.  Ids, masks, ``routed``,
+each driver with the JAX draws injected (the cluster's one set per
+worker).  Ids, masks, ``routed``,
 ``new_pids``, pressure rows, stats and every integer field are compared
 exactly; scores within fp32 tolerance; states field by field through
 ``bridge.state_to_numpy`` (centroids within ``1e-4 * scale``, as in
@@ -308,6 +313,50 @@ def test_sharded_driver_matches_jax(ref, name):
                                   ref[f"o/{name}/occupancy"])
     np.testing.assert_array_equal(drv.shard_pressure(),
                                   ref[f"o/{name}/pressure"])
+
+
+def test_cluster_two_workers_two_shards_matches_jax(ref):
+    """The port's coordinator over two workers of two logical shards each,
+    the JAX draws injected per worker, against the JAX coordinator on
+    fake devices: the stats, both rebalance planes' triggers (in-worker
+    ``spread`` and cross-worker ``worker-spread``), each worker's live
+    count, digest and snapshot field by field, the merged search and
+    ``exact`` ids and the per-shard occupancy."""
+    from repro_torch.cluster import ClusterCoordinator
+    from repro_torch.obs import Obs
+    seeds, ops, queries = reference.cluster_stream()
+    cfg = UBISConfig(**reference.DRIVER_CFG)
+    W = reference.CLUSTER_KW["workers"]
+    wcfg = dataclasses.replace(cfg, max_postings=cfg.max_postings // W,
+                               nprobe=min(cfg.nprobe, cfg.max_postings // W))
+    inits = [jax_draws(wcfg, len(seeds[w::W]))[0] for w in range(W)]
+    obs = Obs()
+    coord = ClusterCoordinator(cfg, seeds, device="cpu", obs=obs,
+                               kmeans_init=inits, **reference.CLUSTER_KW)
+    reference.drive(coord, ops)
+    want = json.loads(str(ref["o/cluster/stats"]))
+    got = {k: float(coord.stats[k]) for k in reference.STAT_KEYS
+           if k not in ("queries", "search_results")}
+    assert got == {k: v for k, v in want.items() if k in got}
+    triggers = reference.rebalance_triggers(obs)
+    assert triggers == json.loads(str(ref["o/cluster/triggers"]))
+    assert triggers.get("spread", 0) > 0 and triggers["worker-spread"] > 0
+    np.testing.assert_array_equal(coord.worker_live(), ref["o/cluster/live"])
+    snap = coord.snapshot()
+    np.testing.assert_array_equal(np.array(snap.digests, np.uint64),
+                                  ref["o/cluster/digests"])
+    for w, st in enumerate(snap.states):
+        assert_states_match(_np_state(st), _want(ref, f"cluster{w}"))
+        check_invariants(st, wcfg)
+    res = coord.search(queries, 10)
+    np.testing.assert_array_equal(res.ids, ref["o/cluster/ids"])
+    np.testing.assert_allclose(res.scores, ref["o/cluster/scores"],
+                               **SCORE_TOL)
+    np.testing.assert_array_equal(coord.exact(queries, 10).ids,
+                                  ref["o/cluster/exact"])
+    np.testing.assert_array_equal(coord.shard_occupancy(),
+                                  ref["o/cluster/occupancy"])
+    coord.close()
 
 
 # ---------------------------------------------------------------------------
