@@ -162,13 +162,32 @@ Phases, in order (any failure exits non-zero before the last line):
    over two workers on the local and on the multiprocess backend: the
    tapes, digests and searches equal, max/min <= 1.5, recall@10 >= 0.9
    against ``exact`` at nprobe 128.
+   Phase 3j, the backbone's decode path: ``get_model("tinyllama-1.1b")``
+   at full width and depth from ``--seed`` prefills 16 prompts of 512
+   tokens made from the seed (22 ``flash_attention`` launches, the first
+   layer's held against the plain version on its q/k/v), the caches go
+   into positions [0, 512) of ``init_cache(16, 576)`` and 64 greedy
+   ``decode_step`` calls follow, the launch counts reset just before
+   and read just after.  Gates, each within ``LOGIT_TOL`` of the largest
+   |logit|: (i) teacher-forced on the kernel run's tokens, the prefill's
+   and every step's logits against the same run with the plain
+   attention in the kernel's place; (ii) prefill's last logits on 4
+   prompts of 128 tokens against 128 one-token decode steps from an
+   empty cache.  Then six variants at ``reduced=True`` (``qk_norm``,
+   ``"LLG"`` with window 8 and a tail, tied embeddings, ``vocab=500``,
+   enc-dec with 2 encoder layers and a ``src``, a vlm ``prefix``), each
+   gated on (ii) with each kind of its ``flash_attention`` calls (the
+   encoder's, the cross-attention's, the windowed layers') held against
+   the plain version on its own inputs.  Printed: prefill ms and
+   tokens/s, decode ms a step and tokens/s, weight and cache bytes.
 4. Each kernel timed (CUDA events, median of 20 runs after warm-up) on
    its path's own inputs, beside its plain version, its bound and, where
    one PyTorch call computes the same product, that call (``addmm`` /
    ``baddbmm``, the gather's with ``index_select`` inside the call; for
    ``flash_attention`` at the serving path's shape the faster of two
    ``scaled_dot_product_attention`` calls, one with ``enable_gqa`` and
-   one on expanded k and v, each with the backend it ran) as a library
+   one on expanded k and v, each with the backend it ran; printed also
+   at phase 3j's prefill shape) as a library
    yardstick; the kernel is also held against its plain version there.
    The block-wide top-k is timed at k = 64 and 192 too, and
    ``kmeans_assign`` at the insert round's encode (2,048 rows under all
@@ -190,10 +209,11 @@ Phases, in order (any failure exits non-zero before the last line):
    locate's argmin is held against the plain version's (a differing pick
    must be a near-tie within the tolerance).  Then a load
    chunk and a streaming step of the float path, a streaming step of the
-   quant and of the tiered path and one embedded batch of the serving
-   path run under ``torch.profiler``: their wall time, device time by
-   kernel and device busy share, and on the tiered step the copies by
-   stream and their overlap with the main stream's kernels.
+   quant and of the tiered path, one embedded batch of the serving
+   path and one decode step of phase 3j run under ``torch.profiler``:
+   their wall time, device time by kernel and device busy share, and on
+   the tiered step the copies by stream and their overlap with the main
+   stream's kernels.
 5. The card's name and power limit, the kernel line ``{"kernels":
    [...]}``, then as the last line ``{"ok": true, "device": {...}}``.
 
@@ -235,6 +255,7 @@ PATH_KERNELS = {
     "tier": ("centroid_score", "centroid_topk", "posting_scan",
              "pq_scan_topk", "rerank_topk", "kmeans_assign"),
     "oracle": ("centroid_score", "posting_scan_gather", "pq_scan_gather"),
+    "decode": ("flash_attention",),
 }
 #: substrings of the port's own device kernels' names (csrc/*.cu): phase
 #: 4b lists each of them in a window, past the six that take the most time
@@ -1911,6 +1932,11 @@ def _hold(name, ref, b, got, want) -> str:
     a = b.arguments
     shapes = "x".join(str(tuple(v.shape)) for v in a.values()
                       if torch.is_tensor(v))
+    if name == "flash_attention":
+        label = (f"{shapes} causal={a.get('causal', True)} "
+                 f"window={a.get('window')}")
+        require_attn_close(f"{name} [{label}]", got, want)
+        return label
     label = shapes + (f" k={a['k']}" if "k" in a else "")
     if name in ("centroid_score", "posting_scan"):
         require_close(f"{name} [{label}]", got, want)
@@ -2636,6 +2662,220 @@ def figdist_runs(dev, ops, seed: int, log=say) -> dict:
         f"ticks, worker live), final digests and search ids and scores "
         f"equal; 3i-3 {time.perf_counter() - t0:.1f} s")
     return launched
+
+
+# ---------------------------------------------------------------------------
+# phase 3j: the backbone's decode path
+# ---------------------------------------------------------------------------
+
+#: phase 3j at full width: ``batch`` prompts of ``prompt`` tokens, ``steps``
+#: greedy decode steps into caches of ``ctx`` positions; gate (ii) on
+#: ``cons_batch`` prompts of ``cons_len`` tokens
+DECODE = dict(batch=16, prompt=512, steps=64, ctx=576, cons_batch=4,
+              cons_len=128)
+#: |logits - reference| <= LOGIT_TOL x the largest |logit| of the real
+#: vocab: fp32 summation order through every layer (the serving path's
+#: gate on its embeddings)
+LOGIT_TOL = 1e-4
+#: ``flash_attention``'s shape in the decode path's prefill (B, Hq, Hkv, L,
+#: D), causal: phase 4 times it beside the serving path's
+DECODE_ATTN = (16, 32, 4, 512, 64)
+#: phase 3j's variants at ``reduced=True``: config overrides, the extra
+#: input (a vlm ``prefix``, an enc-dec ``src``, ``prefix_len`` rows), and
+#: the (Lq, Lk, causal, window) calls of ``flash_attention`` that must be
+#: held against the plain version on their own inputs
+DECODE_PROMPT = (4, 40)
+DECODE_VARIANTS = {
+    "qk_norm": (dict(qk_norm=True), None, {(40, 40, True, None)}),
+    "local-global LLG, window 8, a tail": (
+        dict(local_global_pattern="LLG", n_layers=4, sliding_window=8),
+        None, {(40, 40, True, 8), (40, 40, True, None)}),
+    "tie_embeddings": (dict(tie_embeddings=True), None,
+                       {(40, 40, True, None)}),
+    "vocab 500": (dict(vocab=500), None, {(40, 40, True, None)}),
+    "encdec": (dict(family="encdec", encoder_layers=2, prefix_len=4), "src",
+               {(4, 4, False, None), (40, 4, False, None),
+                (40, 40, True, None)}),
+    "vlm prefix": (dict(family="vlm", prefix_len=4), "prefix",
+                   {(44, 44, True, None), (24, 24, True, None)}),
+}
+
+
+def require_logits(label, got, want) -> float:
+    """``got`` within ``LOGIT_TOL`` of the largest |``want``| over the
+    real vocab (the padded entries are -1e30 in both); returns the error
+    over that scale."""
+    real = want > -1e29
+    if not torch.equal(real, got > -1e29):
+        fail(f"{label}: the padded vocab's logits differ")
+    err = float((got.double() - want.double()).abs()[real].max())
+    scale = float(want[real].abs().max())
+    if not err <= LOGIT_TOL * scale:
+        fail(f"{label}: max |logits - reference| {err:.3g} > {LOGIT_TOL} x "
+             f"{scale:.3g}")
+    if not bool(torch.isfinite(got[real]).all()):
+        fail(f"{label}: non-finite logits")
+    return err / scale
+
+
+def stepwise_matches_prefill(model, batch: dict, label: str,
+                             log=say) -> float:
+    """Gate (ii): prefill's last logits equal those of one-token decode
+    steps over the same tokens from an empty cache (an enc-dec model's
+    cross caches taken from prefill's; with a vlm ``prefix``, steps over
+    the second half after a prefill of the prefix and the first half)."""
+    want, pre = model.prefill(batch)
+    toks = batch["tokens"]
+    B, L = toks.shape
+    P = batch["prefix"].shape[1] if "prefix" in batch else 0
+    caches, start = model.init_cache(B, P + L), 0
+    if P:
+        start = L // 2
+        _, part = model.prefill({**batch, "tokens": toks[:, :start]})
+        caches = model.grow_caches(part, P + L)
+    if "src" in batch:
+        for c, p in zip(caches, pre):
+            c["xk"].copy_(p["xk"])
+            c["xv"].copy_(p["xv"])
+    for t in range(start, L):
+        got, caches = model.decode_step(caches, toks[:, t], P + t)
+    rel = require_logits(f"{label}: prefill vs decode steps", got, want)
+    log(f"  gate (ii) {label}: prefill's last logits vs {L - start} "
+        f"one-token decode steps (B={B}, {P + L} positions): max err "
+        f"{rel:.3g} of the largest |logit| (gate {LOGIT_TOL})")
+    return rel
+
+
+def decode_path(dev, ops, ref, smi: str, *, seed: int,
+                reduced: bool = False, log=say, **size):
+    """Phase 3j at full width: ``get_model("tinyllama-1.1b")`` prefills
+    ``batch`` prompts of ``prompt`` tokens (its ``flash_attention`` held
+    against the plain version on the first layer's q/k/v), the caches
+    go into ``init_cache(batch, ctx)``, then ``steps`` greedy decode
+    steps; the launch counts reset just before and read just after.
+    Gates (i) (teacher-forced against the plain attention's run) and
+    (ii), then prefill and decode timed.  Returns (the path's launch
+    counts, one decode step for phase 4b)."""
+    from repro_torch.models import get_model
+    sz = dict(DECODE, **size)
+    B, L, steps, ctx = sz["batch"], sz["prompt"], sz["steps"], sz["ctx"]
+    t = time.perf_counter()
+    model = get_model("tinyllama-1.1b", reduced=reduced, device=str(dev),
+                      seed=seed)
+    sync()
+    cfg = model.cfg
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    log(f"  {cfg.name}: {len(model.layers)} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv} heads x {cfg.hd}, vocab {cfg.vocab} "
+        f"(head untied): {weight_bytes:,} bytes of fp32 weights drawn in "
+        f"{time.perf_counter() - t:.1f} s")
+    rng = np.random.default_rng(seed + 13)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (B, L)), device=dev)
+
+    ops.reset_launch_counts()
+    with held_on_path(ops, ref, ("flash_attention",), log=log):
+        logits, pre = model.prefill({"tokens": toks})
+    caches = model.grow_caches(pre, ctx)
+    fed, got, lg = [], [], logits
+    for i in range(steps):
+        fed.append(lg.argmax(-1))
+        lg, caches = model.decode_step(caches, fed[-1], L + i)
+        got.append(lg)
+    sync()
+    launched = ops.launch_counts()
+    log(f"  launches on the decode path: {json.dumps(launched)}")
+    if launched["flash_attention"] != len(model.layers):
+        fail(f"decode path: {launched['flash_attention']} flash_attention "
+             f"launches, not one a layer ({len(model.layers)})")
+    for name in PATH_KERNELS["decode"]:
+        if launched[name] <= 0:
+            fail(f"kernel {name} was never launched on the decode path")
+    cache_bytes = sum(x.numel() * x.element_size() for c in caches
+                      for x in c.values())
+
+    with mock.patch.object(ops, "flash_attention", plain_attention(ref)):
+        plogits, ppre = model.prefill({"tokens": toks})
+    worst = require_logits("decode path: prefill", logits, plogits)
+    pc = model.grow_caches(ppre, ctx)
+    del ppre, plogits
+    for i in range(steps):
+        plg, pc = model.decode_step(pc, fed[i], L + i)
+        worst = max(worst, require_logits(f"decode path: step {i}", got[i],
+                                          plg))
+    del pc, got
+    log(f"  gate (i), teacher-forced on the kernel run's {steps} tokens: "
+        f"prefill and every step's logits, kernel against plain attention: "
+        f"max err {worst:.3g} of the largest |logit| (gate {LOGIT_TOL})")
+    stepwise_matches_prefill(model, {"tokens": toks[:sz["cons_batch"],
+                                                    :sz["cons_len"]]},
+                             cfg.name, log)
+
+    times = []
+    for _ in range(3):
+        sync()
+        t = time.perf_counter()
+        model.prefill({"tokens": toks})
+        sync()
+        times.append(time.perf_counter() - t)
+    pre_s = float(np.median(times))
+    caches = model.grow_caches(pre, ctx)
+    del pre
+    sync()
+    t = time.perf_counter()
+    for i in range(steps):
+        model.decode_step(caches, fed[i], L + i)
+    sync()
+    step_s = (time.perf_counter() - t) / steps
+    log(f"  {smi}: prefill {B} x {L} tokens {pre_s * 1e3:.3f} ms (median "
+        f"of 3: {B * L / pre_s:.0f} tokens/s); decode {step_s * 1e3:.3f} ms "
+        f"a step at B={B}, context {L}-{L + steps} ({B / step_s:.1f} "
+        f"tokens/s, {steps} steps); weights {weight_bytes:,} bytes, KV "
+        f"cache {cache_bytes:,} bytes ({B} x {ctx} positions)")
+
+    def one_step():
+        model.decode_step(caches, fed[-1], L + steps - 1)
+    return launched, one_step
+
+
+def held_kinds(held) -> set:
+    """(Lq, Lk, causal, window) of each ``flash_attention`` call held."""
+    out = set()
+    for key, _ in held["flash_attention"]:
+        a = dict(key)
+        out.add((a["q"][2], a["k"][2], a.get("causal", True),
+                 a.get("window")))
+    return out
+
+
+def decode_variants(dev, ops, ref, seed: int, log=say) -> dict:
+    """Phase 3j's variants at ``reduced=True``: gate (ii) on each, and
+    every kind of ``flash_attention`` call of the variant (the encoder's,
+    the cross-attention's, the windowed layers') held against the plain
+    version on its own inputs.  Returns the launch counts."""
+    from repro_torch.models import get_model
+    total = {}
+    for name, (over, extra, kinds) in DECODE_VARIANTS.items():
+        model = get_model("tinyllama-1.1b", reduced=True, device=str(dev),
+                          seed=seed, **over)
+        cfg = model.cfg
+        rng = np.random.default_rng(seed + 17)
+        batch = {"tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab, DECODE_PROMPT), device=dev)}
+        if extra is not None:
+            batch[extra] = torch.as_tensor(0.5 * rng.standard_normal(
+                (DECODE_PROMPT[0], cfg.prefix_len, cfg.d_model),
+                dtype=np.float32), device=dev)
+        ops.reset_launch_counts()
+        with held_on_path(ops, ref, ("flash_attention",), log=log) as held:
+            stepwise_matches_prefill(model, batch, name, log)
+        missing = kinds - held_kinds(held)
+        if missing:
+            fail(f"decode variant {name}: flash_attention calls {missing} "
+                 "were not held against the plain version")
+        total = {k: total.get(k, 0) + v
+                 for k, v in ops.launch_counts().items()}
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -3402,10 +3642,13 @@ def sdpa_backend(fn) -> tuple:
     return "math", names
 
 
-def time_attention(ops, ref, dev, counts, seed: int) -> dict:
-    """``flash_attention`` at the serving path's shape (every layer of
-    the backbone gives it B=64, Hq=32, Hkv=4, L=512, D=64, causal), on
-    random normal q, k, v.  The yardstick is the faster of two
+def time_attention(ops, ref, dev, counts, seed: int,
+                   shape=SERVE_ATTN) -> dict:
+    """``flash_attention`` at a backbone's shape (B, Hq, Hkv, L, D),
+    causal, on random normal q, k, v: by default the serving path's
+    (every layer of the backbone gives it B=64, Hq=32, Hkv=4, L=512,
+    D=64), or phase 3j's prefill's (``DECODE_ATTN``).  The yardstick is
+    the faster of two
     ``scaled_dot_product_attention`` calls with ``is_causal=True`` (its
     top-left causal alignment equals the end alignment here, Lq = Lk):
     one with ``enable_gqa=True``, one on k and v expanded to Hq heads by
@@ -3415,7 +3658,7 @@ def time_attention(ops, ref, dev, counts, seed: int) -> dict:
     is printed."""
     import torch.nn.functional as F
     g = np.random.default_rng(seed + 2)
-    B, Hq, Hkv, L, D = SERVE_ATTN
+    B, Hq, Hkv, L, D = shape
     G = Hq // Hkv
     q, k, v = (torch.as_tensor(g.standard_normal(s, np.float32), device=dev)
                for s in ((B, Hq, L, D), (B, Hkv, L, D), (B, Hkv, L, D)))
@@ -3445,7 +3688,8 @@ def time_attention(ops, ref, dev, counts, seed: int) -> dict:
     row["library_ms"] = min(times.values())
     on_card = device_ms(lambda: ops.flash_attention(q, k, v, causal=True),
                         "flash_attention")
-    say(f"  flash_attention: {row['ms']:.4f} ms a call ({ms_text(on_card)} "
+    say(f"  flash_attention at {shape}: {row['ms']:.4f} ms a call "
+        f"(plain {row['plain_ms']:.4f} ms; {ms_text(on_card)} "
         f"on the card, torch.profiler), fp32 bound {row['bound_ms']:.4f} ms "
         f"({row['bound_by']}), 3xTF32 bound {bound_3xtf32(*work):.4f} ms, "
         f"faster SDPA {row['library_ms']:.4f} ms")
@@ -3503,13 +3747,14 @@ def copy_overlap(prof) -> dict:
 
 
 def profile_windows(drv, stream, qdrv, qstream, tdrv, tstream,
-                    embed_batch, sdrv, sstream) -> dict:
-    """Device time by kernel over six windows, with ``torch.profiler``:
+                    embed_batch, sdrv, sstream, decode_step) -> dict:
+    """Device time by kernel over seven windows, with ``torch.profiler``:
     on the float path one load chunk (20k inserts, then ticks until
     quiescent) and one streaming step (20k inserts, 10k deletes, a tick,
     a 256-query search); on the quant path, the tiered path and the
     sharded float path (phase 3h-1's driver) one streaming step each; on
-    the serving path one embedded batch of 64 x 512 tokens.  The busy
+    the serving path one embedded batch of 64 x 512 tokens; on the
+    decode path one decode step (B=16, 576 cache positions).  The busy
     share is device time over wall time (kernels of one stream do not
     overlap; on the tiered path the tier's copies run on a side stream,
     reported apart with their overlap); the wall time includes the
@@ -3536,7 +3781,8 @@ def profile_windows(drv, stream, qdrv, qstream, tdrv, tstream,
                      ("quant_stream_step", lambda: step(qdrv, qstream)),
                      ("tier_stream_step", lambda: step(tdrv, tstream)),
                      ("sharded_stream_step", lambda: step(sdrv, sstream)),
-                     ("serve_embed_batch", embed_batch)):
+                     ("serve_embed_batch", embed_batch),
+                     ("decode_step", decode_step)):
         wall, busy, rows, prof = window(fn)
         windows[name] = {
             "wall_s": wall, "device_busy_s": busy,
@@ -3730,6 +3976,18 @@ def main() -> None:
         counts = {k: counts.get(k, 0) + v for k, v in launched.items()}
     say(f"  phase 3i: {time.perf_counter() - t:.1f} s")
 
+    say("phase 3j: the backbone's decode path, tinyllama-1.1b at full width "
+        f"(prefill {DECODE['batch']} x {DECODE['prompt']}, KV caches of "
+        f"{DECODE['ctx']}, {DECODE['steps']} greedy decode steps), then "
+        "six variants at reduced size")
+    t = time.perf_counter()
+    launched, decode_step = decode_path(dev, ops, ref, smi, seed=args.seed)
+    counts = {k: counts.get(k, 0) + v for k, v in launched.items()}
+    launched = decode_variants(dev, ops, ref, args.seed)
+    counts = {k: counts.get(k, 0) + v for k, v in launched.items()}
+    torch.cuda.empty_cache()
+    say(f"  phase 3j: {time.perf_counter() - t:.1f} s")
+
     say("phase 4: kernel times on the main paths' inputs")
     fdrv, fq, _, fstream, _ = paths["float"]
     qdrv, qq, _, qstream, _ = paths["quant"]
@@ -3739,6 +3997,7 @@ def main() -> None:
     rows += time_quant_kernels(ops, ref, qdrv, fdrv, qq, counts)
     rows += time_gathers(ops, ref, fdrv, qdrv, oracle_in, counts)
     rows.append(time_attention(ops, ref, dev, counts, args.seed))
+    time_attention(ops, ref, dev, counts, args.seed, DECODE_ATTN)
     before = parent_times(args.parent_log) if args.parent_log else {}
     for r in rows:
         was = (f", parent tree {before[r['name']]:.4f} ms"
@@ -3750,7 +4009,8 @@ def main() -> None:
             f"{r['max_abs_err']:.3g}")
     say("phase 4b: device time by kernel (torch.profiler)")
     profile_windows(fdrv, fstream, qdrv, qstream, tdrv, tstream,
-                    lambda: server.embedder.embed(toks), sdrv, sstream)
+                    lambda: server.embedder.embed(toks), sdrv, sstream,
+                    decode_step)
     tdrv.close()
     say(f"  profiler sessions short of the expected device events: "
         f"{PROFILE_MISSES['retried']} opened again, "

@@ -9,11 +9,18 @@
   (``values(LM.init(key))`` as nested dicts of numpy arrays, each
   period's weights stacked over its repeats) as the port's ``LM``
   state dict (one module per layer).
+* The backbone's KV caches: the JAX package's cache tree (a list per
+  segment of ``{str(i): {"k", "v"[, "xk", "xv"]}}``, each leaf stacked
+  over the segment's repeats) as the port's list of one dict a layer,
+  and back.
+
+Layer n of the port is repeat r of descriptor i of segment s, in
+execution order (``_layer_index``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -56,14 +63,25 @@ def state_to_numpy(state: IndexState) -> Dict[str, np.ndarray]:
     return out
 
 
+def _layer_index(segments):
+    """(layer n, segment s, repeat r, descriptor i) in execution order."""
+    n = 0
+    for si, (descrs, repeat) in enumerate(segments):
+        for r in range(repeat):
+            for i in range(len(descrs)):
+                yield n, si, r, i
+                n += 1
+
+
 def lm_state_from_numpy(tree: Dict[str, Any], model) -> Dict[str, torch.Tensor]:
     """The state dict of ``model`` (a ``repro_torch.models.LM``) holding
-    the JAX package's weights ``tree``: keys ``emb``, ``ln_f`` and
-    ``seg{s}`` -> ``{i}`` -> ``ln1``/``attn``/``ln2``/``mlp`` leaves of
-    shape ``(repeat, ...)``; its ``head`` is skipped (the port's ``LM``
-    has none until the decode slice).  Layer n of the port is repeat r of
-    descriptor i of segment s, in execution order.  Shapes are checked
-    against the model's; the tensors land on the model's device."""
+    the JAX package's weights ``tree``: ``emb``, ``ln_f``, ``head``
+    (untied models), ``seg{s}`` -> ``{i}`` -> ``ln1``/``attn``/``ln_x``/
+    ``cross``/``ln2``/``mlp`` leaves of shape ``(repeat, ...)``, and on
+    an enc-dec model ``enc`` -> ``ln_f`` and its own ``seg{s}`` (the
+    port's ``enc.layers``).  Shapes are checked against the model's, and
+    every parameter of the model must get a value; the tensors land on
+    the model's device."""
     want = model.state_dict()
     out: Dict[str, torch.Tensor] = {}
 
@@ -79,22 +97,62 @@ def lm_state_from_numpy(tree: Dict[str, Any], model) -> Dict[str, torch.Tensor]:
         out[key] = torch.from_numpy(np.array(a, np.float32, order="C")).to(
             want[key].device)
 
-    for name in ("emb", "ln_f"):
-        put(name, tree[name])
-    n = 0
-    for si, (descrs, repeat) in enumerate(model.segments):
-        seg = tree[f"seg{si}"]
-        for r in range(repeat):
-            for i in range(len(descrs)):
-                for group, leaf in seg[str(i)].items():
-                    if isinstance(leaf, dict):
-                        for name, a in leaf.items():
-                            put(f"layers.{n}.{group}.{name}",
-                                np.asarray(a)[r])
-                    else:
-                        put(f"layers.{n}.{group}", np.asarray(leaf)[r])
-                n += 1
+    def put_layers(prefix, sub, segments):
+        for n, si, r, i in _layer_index(segments):
+            for group, leaf in sub[f"seg{si}"][str(i)].items():
+                if isinstance(leaf, dict):
+                    for name, a in leaf.items():
+                        put(f"{prefix}.{n}.{group}.{name}", np.asarray(a)[r])
+                else:
+                    put(f"{prefix}.{n}.{group}", np.asarray(leaf)[r])
+
+    for name in ("emb", "ln_f", "head"):
+        if name in tree:
+            put(name, tree[name])
+    put_layers("layers", tree, model.segments)
+    if "enc" in tree:
+        put("enc.ln_f", tree["enc"]["ln_f"])
+        put_layers("enc.layers", tree["enc"], model.enc_segments)
     missing = sorted(set(want) - set(out))
     if missing:
         raise ValueError(f"lm_state_from_numpy: no weights for {missing}")
     return out
+
+
+def lm_caches_from_numpy(caches, model) -> List[Dict[str, torch.Tensor]]:
+    """The port's caches (one dict a layer, on the model's device) from
+    the JAX package's cache tree: a list per segment of ``{str(i): {"k",
+    "v"[, "xk", "xv"]}}``, each leaf ``(repeat, B, Hkv, S, hd)``."""
+    if len(caches) != len(model.segments):
+        raise ValueError(f"lm_caches_from_numpy: {len(caches)} segments, "
+                         f"the model has {len(model.segments)}")
+    out: List[Dict[str, torch.Tensor]] = []
+    for n, si, r, i in _layer_index(model.segments):
+        layer = {}
+        for name, a in caches[si][str(i)].items():
+            a = np.asarray(a)
+            if a.shape[:1] != (model.segments[si][1],) or a.ndim != 5:
+                raise ValueError(f"lm_caches_from_numpy: {name} of segment "
+                                 f"{si} has shape {a.shape}, not (repeat="
+                                 f"{model.segments[si][1]}, B, Hkv, S, hd)")
+            layer[name] = torch.from_numpy(np.array(a[r], order="C")).to(
+                model.device)
+        out.append(layer)
+    return out
+
+
+def lm_caches_to_numpy(caches, model) -> List[Dict[str, Dict[str, np.ndarray]]]:
+    """The JAX package's cache tree (a list per segment of ``{str(i):
+    {leaf: (repeat, ...)}}``) from the port's caches, one dict a layer."""
+    index = list(_layer_index(model.segments))
+    if len(caches) != len(index):
+        raise ValueError(f"lm_caches_to_numpy: {len(caches)} layer caches, "
+                         f"the model has {len(index)} layers")
+    out = [{str(i): {} for i in range(len(descrs))}
+           for descrs, _ in model.segments]
+    for n, si, _, i in index:            # repeats come in order
+        for name, t in caches[n].items():
+            out[si][str(i)].setdefault(name, []).append(
+                t.detach().cpu().numpy())
+    return [{i: {name: np.stack(rows) for name, rows in leaves.items()}
+             for i, leaves in seg.items()} for seg in out]

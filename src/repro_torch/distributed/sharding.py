@@ -19,11 +19,18 @@ The ``data`` axis only sets the multiple that query batches pad to:
 every query's answer is independent of the others, so padding changes
 no answer.  A model axis across several cards (one process per card)
 needs a machine with more than one card and is not part of this module.
+
+The backbone's logical-axis rules (:func:`make_rules`) and their mapping
+of a leaf's logical axes onto mesh axes (:func:`logical_to_spec`, a
+tuple where the reference builds a ``PartitionSpec``) are the
+reference's, over the port's ``Mesh.axis_names``; they read the axes
+that ``LM.param_shapes`` and ``LM.cache_shapes`` return.  Placing
+tensors by them needs several cards too.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -96,3 +103,41 @@ def pmax(xs: Sequence[torch.Tensor]) -> torch.Tensor:
     for x in xs[1:]:
         out = torch.maximum(out, x)
     return out
+
+
+def make_rules(mesh: Mesh, kind: str = "train",
+               long_context: bool = False) -> Dict[str, Any]:
+    """Logical axis -> mesh axis (a name, a tuple of names or None) for a
+    workload ``kind`` ("train" or "decode"): the batch and the FSDP
+    parameter dim over ``data`` (with ``pod`` in front where the mesh
+    has one), the tensor-parallel dims over ``model``, and on decode the
+    KV caches' sequence axis over ``model`` (over the whole mesh, the
+    batch unsharded, with ``long_context``)."""
+    fsdp: Any = ("pod", "data") if "pod" in mesh.axis_names else "data"
+    rules: Dict[str, Any] = {
+        "batch": fsdp,
+        "embed": fsdp,          # FSDP parameter dim
+        "embed_out": None,
+        "vocab": "model",
+        "heads_flat": "model",
+        "heads": "model",
+        "ffn": "model",
+        "experts": "model",
+        "expert_ffn": None,
+        "expert_cap": fsdp,
+        "kv_seq": "model" if kind == "decode" else None,
+        "layers": None,
+    }
+    if kind == "decode" and long_context:
+        rules["batch"] = None
+        rules["expert_cap"] = None
+        rules["kv_seq"] = ("data", "model")
+    return rules
+
+
+def logical_to_spec(logical: Sequence[Optional[str]],
+                    rules: Dict[str, Any]) -> Tuple[Any, ...]:
+    """A leaf's logical axes -> its mesh axes, one entry a dim (None:
+    replicated; a name the rules lack maps to None, as in the
+    reference)."""
+    return tuple(None if a is None else rules.get(a) for a in logical)

@@ -1,9 +1,12 @@
 """Building blocks of the serving embed backbone (plain tensor functions).
 
-Counterpart of ``repro/models/layers.py``.  The JAX package's ``Param``,
-``axes_of`` and ``shard()`` are sharding machinery with no single-device
-counterpart; they wait for the sharded slice.  Parameters are plain
+Counterpart of ``repro/models/layers.py``.  Parameters are plain
 tensors drawn from an explicit ``torch.Generator`` on the target device.
+The JAX package's ``Param`` carries each leaf's logical axes beside its
+value; here ``LM.param_shapes`` and ``LM.cache_shapes`` return the axes
+as plain tuples of names (``distributed.sharding.logical_to_spec`` maps
+them).  ``shard()`` constrains activations across devices and has no
+single-device counterpart.
 """
 from __future__ import annotations
 
@@ -31,6 +34,17 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, -1, keepdim=True) + eps)
     return (x * (1.0 + w.float())).to(dt)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """Layer norm that scales by ``w`` and shifts by ``b``, in fp32."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, -1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, -1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * w.float() + b.float()).to(dt)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,

@@ -8,9 +8,9 @@
   ``EmbeddingServer``, ``RetrievalServer``, the cluster coordinator and
   a worker's ``init``) run on the card by default
   and raise without one unless the caller asks for the CPU; the planes
-  of later slices (the decode path) raise ``NotImplementedError``
-  instead of being ignored, and the quant plane (``use_pq``), the cold
-  tier (``use_tier``) and the fused tick run.
+  that once raised ``NotImplementedError`` run: the quant plane
+  (``use_pq``), the cold tier (``use_tier``), the fused tick, and the
+  backbone's decode path (``prefill``, ``decode_step``, ``qk_norm``).
 * Every kernel of ``ops.KERNELS`` names a CUDA source that ``_nvcc``
   builds, and every source is built for some kernel.
 """
@@ -116,30 +116,32 @@ def test_entry_points_raise_without_cuda():
 
 
 # The case ids are the ones these cases had when the quant plane, the
-# cold tier and the fused tick still raised; the first three cases now
-# check that they run.
+# cold tier, the fused tick and the decode path still raised; every case
+# now checks that its plane runs.
 @pytest.mark.parametrize("kw,what", [
     pytest.param(dict(use_pq=True, pq_m=4), None, id="kw0-quant plane"),
     pytest.param(dict(use_pq=True, pq_m=4, use_tier=True), None,
                  id="kw1-quant plane"),
     pytest.param(dict(fused_tick=True), None, id="kw2-fused_tick"),
-    pytest.param(dict(lm="prefill"), "decode slice", id="lm-prefill"),
-    pytest.param(dict(lm="decode_step"), "decode slice",
-                 id="lm-decode_step"),
-    pytest.param(dict(lm_cfg=dict(qk_norm=True)), "qk_norm",
-                 id="lm-qk_norm"),
+    pytest.param(dict(lm="prefill"), None, id="lm-prefill"),
+    pytest.param(dict(lm="decode_step"), None, id="lm-decode_step"),
+    pytest.param(dict(lm_cfg=dict(qk_norm=True)), None, id="lm-qk_norm"),
 ])
 def test_later_slices_raise_not_implemented(kw, what):
     kw = dict(kw)
-    if "lm_cfg" in kw:
-        with pytest.raises(NotImplementedError, match=what):
-            get_model("tinyllama-1.1b", reduced=True, device="cpu",
-                      **kw["lm_cfg"])
-        return
-    if "lm" in kw:
-        lm = get_model("tinyllama-1.1b", reduced=True, device="cpu")
-        with pytest.raises(NotImplementedError, match=what):
-            getattr(lm, kw["lm"])({"tokens": np.zeros((1, 4), np.int32)})
+    if "lm" in kw or "lm_cfg" in kw:
+        lm = get_model("tinyllama-1.1b", reduced=True, device="cpu",
+                       **kw.get("lm_cfg", {}))
+        assert ("q_norm" in lm.layers[0].attn) == ("lm_cfg" in kw)
+        tokens = np.zeros((1, 4), np.int32)
+        logits, caches = lm.prefill({"tokens": tokens})
+        assert logits.shape == (1, 512) and torch.isfinite(logits).all()
+        assert [tuple(c["k"].shape) for c in caches] == [(1, 2, 4, 32)] * 2
+        if kw.get("lm") == "decode_step":
+            caches = lm.init_cache(1, 8)
+            logits, out = lm.decode_step(caches, tokens[:, 0], 0)
+            assert out is caches and logits.shape == (1, 512)
+            assert caches[0]["k"][:, :, 0].abs().sum() > 0
         return
     fused = kw.pop("fused_tick", False)
     cfg = UBISConfig(dim=8, max_postings=64, capacity=32, l_min=4, l_max=24,

@@ -217,10 +217,41 @@ def test_embedding_server_matches_jax():
 
 
 def test_weight_bridge_checks_shapes():
+    """Shapes, missing and unknown leaves: the MLP, the output ``head``
+    and the enc-dec family's cross-attention weights."""
     jm = jget_model("tinyllama-1.1b", reduced=True, remat="none")
     _, np_tree = _jax_tree(jm)
     tm = get_model("tinyllama-1.1b", reduced=True, device="cpu", d_ff=128)
     with pytest.raises(ValueError, match="shape"):
+        lm_state_from_numpy(np_tree, tm)
+    tied = get_model("tinyllama-1.1b", reduced=True, device="cpu",
+                     tie_embeddings=True)
+    with pytest.raises(ValueError, match="head is not a parameter"):
+        lm_state_from_numpy(np_tree, tied)
+    tm = get_model("tinyllama-1.1b", reduced=True, device="cpu")
+    headless = {k: v for k, v in np_tree.items() if k != "head"}
+    with pytest.raises(ValueError, match=r"no weights for \['head'\]"):
+        lm_state_from_numpy(headless, tm)
+    bad_head = dict(np_tree, head=np_tree["head"][:, :256])
+    with pytest.raises(ValueError, match="head has shape"):
+        lm_state_from_numpy(bad_head, tm)
+    encdec = dict(family="encdec", encoder_layers=2, prefix_len=4)
+    _, enc_tree = _jax_tree(jget_model("tinyllama-1.1b", reduced=True,
+                                       remat="none", **encdec))
+    tm = get_model("tinyllama-1.1b", reduced=True, device="cpu", **encdec)
+    state = lm_state_from_numpy(enc_tree, tm)
+    assert {"layers.1.ln_x", "layers.1.cross.wo", "enc.ln_f",
+            "enc.layers.1.attn.wq"} <= set(state)
+    cross = enc_tree["seg0"]["0"]["cross"]
+    bad = dict(enc_tree, seg0={"0": dict(enc_tree["seg0"]["0"], cross=dict(
+        cross, wk=cross["wk"][:, :, :32]))})
+    with pytest.raises(ValueError, match="layers.0.cross.wk has shape"):
+        lm_state_from_numpy(bad, tm)
+    with pytest.raises(ValueError,
+                       match=r"layers\.0\.(ln_x|cross\.w.) is not a param"):
+        lm_state_from_numpy(enc_tree, get_model(
+            "tinyllama-1.1b", reduced=True, device="cpu"))
+    with pytest.raises(ValueError, match="no weights for .*cross"):
         lm_state_from_numpy(np_tree, tm)
 
 
