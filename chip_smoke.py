@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                      # the full run, one card
     python3 chip_smoke.py --parent-log P.log   # beside another run's times
+                                               # (kernels, phases 3h, 3i)
     python3 chip_smoke.py --parent-tree DIR    # and another tree's kernels
 
 Phases, in order (any failure exits non-zero before the last line):
@@ -112,11 +113,11 @@ Phases, in order (any failure exits non-zero before the last line):
    single-posting ops against one ``background_round`` on a marked
    state at d = 128: the same live map, the invariants on both.
    Phase 3h, the sharded plane: ``make_index("ubis-sharded", ...)`` on
-   S = 4 logical shards of the card (``make_mesh((1, 4))``, 16,376
-   postings a shard).  3h-1: the float path's configuration and data
-   at ``SHARD_LOAD`` vectors (1,000,000 until phase 3i came: the whole
-   script's time), loaded through the sharded insert rounds, then 3
-   streaming steps;
+   S = 4 shards of the card (``make_mesh((1, 4))``, 16,376 postings a
+   shard, each shard's rows and replicas in storage of its own).  3h-1:
+   the float path's configuration and data at ``SHARD_LOAD`` vectors
+   (1,000,000 until phase 3i came: the whole script's time), loaded
+   through the sharded insert rounds, then 3 streaming steps;
    3h-2: the quant path's final state adopted (``load_snapshot``), then
    2 steps; 3h-3: figskew's stream (16 clusters, Zipf 1.5 popularity,
    ``benchmarks/figures.py:293-383``) at d = 128, 200,000 vectors in 10
@@ -125,8 +126,10 @@ Phases, in order (any failure exits non-zero before the last line):
    Gates: recall@10 >= 0.9 against the sharded ``exact`` at every step,
    ``live_count()`` against the stats, the invariants (and the codes
    invariant) on ``snapshot()``, the replicas identical after the load
-   and every step, every tick's pressure rows summing to the live
-   postings' vectors, the sharded ``exact`` equal to the single-device
+   and every step, every shard's tensors on its device and no storage
+   shared by two shards at every stage (the S = 4 audit), every tick's
+   pressure rows summing to the live postings' vectors, the sharded
+   ``exact`` equal to the single-device
    ``brute_force`` of the snapshot (a differing id only at a near-tie),
    the path's kernels launched (``pq_scan_topk`` and ``rerank_topk``
    under the ownership mask), and each of them held against its plain
@@ -162,6 +165,17 @@ Phases, in order (any failure exits non-zero before the last line):
    over two workers on the local and on the multiprocess backend: the
    tapes, digests and searches equal, max/min <= 1.5, recall@10 >= 0.9
    against ``exact`` at nprobe 128.
+   Phase 3k, where the process sees two or more cards (else it prints
+   that it did not run and why): 3h-3's Zipf stream (200,000 vectors, 10
+   flushed batches, rebalance on) on S = min(4, cards) shards, first all
+   on the first card, then one a card (``make_mesh(..., devices=)``):
+   the search and exact ids and scores, the stats, the occupancy and the
+   snapshot equal bit for bit, the placement audited, and every float
+   kernel of the path launched and held against its plain version on a
+   later card's inputs; then the same for the quant plane (PQ16) on the
+   stream's first 4 batches with a codebook re-train every 4 ticks
+   (its five kernels held on a later card), and each plane's unfused
+   gather launched on the last shard's card against its plain version.
    Phase 3j, the backbone's decode path: ``get_model("tinyllama-1.1b")``
    at full width and depth from ``--seed`` prefills 16 prompts of 512
    tokens made from the seed (22 ``flash_attention`` launches, the first
@@ -1904,7 +1918,8 @@ SHARD_KERNELS = {"float": ("centroid_score", "centroid_topk",
 
 
 #: shapes a kernel that ``held_on_path`` holds against its plain version:
-#: the first call at each new shape, up to this many shapes a kernel
+#: the first call at each new shape, up to this many shapes a kernel on
+#: each device
 HELD_SHAPES = 8
 #: rows of a ``kmeans_assign`` call that ``held_on_path`` compares (rows
 #: are independent; a full re-encode's plain version would score every
@@ -1996,19 +2011,19 @@ def _hold(name, ref, b, got, want) -> str:
 @contextmanager
 def held_on_path(ops, ref, names, log=say):
     """While the block runs, the first call at each new shape (up to
-    ``HELD_SHAPES`` a kernel) that the path makes through ``ops`` to a
-    kernel in ``names`` is held against the wrapper's plain version on
-    the same tensors before the path sees its result: the path's own
-    shapes and masks (the shard-local pools, the ownership masks).  The
-    kernel's launch is the path's and counts; the plain version launches
-    nothing.  On exit, fails unless every kernel of ``names`` was held at
-    least once; prints what was held."""
+    ``HELD_SHAPES`` a kernel on each device) that the path makes through
+    ``ops`` to a kernel in ``names`` is held against the wrapper's plain
+    version on the same tensors before the path sees its result: the
+    path's own shapes and masks (the shard-local pools, the ownership
+    masks).  The kernel's launch is the path's and counts; the plain
+    version launches nothing.  On exit, fails unless every kernel of
+    ``names`` was held at least once; prints what was held."""
     import inspect
     held = {n: [] for n in names}
     saved = {n: getattr(ops, n) for n in names}
 
     def plain(fn, *args, **kw):
-        with mock.patch.object(ops, "_on_card", lambda t: False):
+        with mock.patch.object(ops, "_on_card", lambda *t: False):
             return fn(*args, **kw)
 
     def wrap(name, fn):
@@ -2017,10 +2032,14 @@ def held_on_path(ops, ref, names, log=say):
         def call(*args, **kw):
             out = fn(*args, **kw)
             b = sig.bind(*args, **kw)
-            key = tuple((k, tuple(v.shape)) if torch.is_tensor(v) else (k, v)
-                        for k, v in b.arguments.items())
+            first = next(v for v in b.arguments.values()
+                         if torch.is_tensor(v))
+            key = (str(first.device),) + tuple(
+                (k, tuple(v.shape)) if torch.is_tensor(v) else (k, v)
+                for k, v in b.arguments.items())
             seen = held[name]
-            if len(seen) >= HELD_SHAPES or key in (s[0] for s in seen):
+            on_dev = [s[0] for s in seen if s[0][0] == key[0]]
+            if len(on_dev) >= HELD_SHAPES or key in on_dev:
                 return out
             if name == "kmeans_assign":
                 pts, cen, msk = (b.arguments["points"],
@@ -2046,6 +2065,8 @@ def held_on_path(ops, ref, names, log=say):
                 want = plain(fn, *args, **kw)
                 label = _hold(name, ref, b, out, want)
             del want
+            if first.device.index:          # a card past the first
+                label = f"{label} on {first.device}"
             seen.append((key, label))
             return out
         return call
@@ -2064,6 +2085,16 @@ def held_on_path(ops, ref, names, log=say):
 def shard_mesh(dev):
     from repro_torch.distributed import make_mesh
     return make_mesh((1, SHARDS), ("data", "model"), device=dev)
+
+
+def audit_placement(sh) -> None:
+    """Every tensor of shard s on ``mesh.devices[s]`` and no two shards
+    sharing a storage (``core.sharded.audit_placement``), or fail."""
+    from repro_torch.core import sharded
+    try:
+        sharded.audit_placement(sh)
+    except AssertionError as e:
+        fail(f"sharded placement: {e}")
 
 
 def audit_pressure(drv) -> None:
@@ -2090,13 +2121,15 @@ def shard_hook(log=say):
             audit_pressure(drv)
             return
         drv.check_replicas()
+        audit_placement(drv.sharded)
         bad = [a for a in drv.pressure_audit if a[0] != a[1]]
         if bad:
             fail(f"pressure rows disagree with the live postings {stage}: "
                  f"{bad[:3]}")
         n = len(drv.pressure_audit)
         drv.pressure_audit.clear()
-        log(f"  {stage}: replicas identical; {n} ticks' pressure rows = "
+        log(f"  {stage}: replicas identical; every shard's tensors on its "
+            f"device, in storage of its own; {n} ticks' pressure rows = "
             f"live postings' vectors; occupancy "
             f"{drv.shard_occupancy().tolist()}, migrated "
             f"{drv.stats['migrated']:.0f}, rejected "
@@ -2166,6 +2199,7 @@ def sharded_path(dev, ops, qpath, seed: int, log=say):
         f"{json.dumps({k: round(v, 3) for k, v in secs.items()})}")
     log(f"  launches on the sharded float path: {json.dumps(launched)}")
     need("float", launched)
+    placement_line(drv.sharded, log)
     exact_against_brute_force(drv, q, log)
     log(f"  recall@10 per step (gated >= 0.9): {recalls}; live "
         f"{drv.live_count()}; migrated {drv.stats['migrated']:.0f}; "
@@ -2207,6 +2241,19 @@ def sharded_path(dev, ops, qpath, seed: int, log=say):
     del sq
     torch.cuda.empty_cache()
     return launches, drv, stream, secs
+
+
+def placement_line(sh, log=say) -> None:
+    """Audit the shards' placement and print what was audited."""
+    from repro_torch.core.sharded import FIELDS
+    audit_placement(sh)
+    tensors = [getattr(st, f) for st in sh.shards for f in FIELDS]
+    stores = {(t.device, t.untyped_storage().data_ptr()) for t in tensors
+              if t.numel()}
+    log(f"  S = {sh.n_shards} placement audit: {len(tensors)} tensors, "
+        f"each on its shard's device "
+        f"({', '.join(str(d) for d in sh.devices)}), {len(stores)} "
+        "storages, none shared by two shards")
 
 
 def skew_runs(dev, ops, seed: int, log=say) -> dict:
@@ -2286,6 +2333,201 @@ def skew_runs(dev, ops, seed: int, log=say) -> dict:
                                f"{r['recall_wide']:.4f}"
                                for n, r in res.items()))
     return ops.launch_counts()
+
+
+# ---------------------------------------------------------------------------
+# phase 3k: the sharded plane with one shard a card
+# ---------------------------------------------------------------------------
+
+def card(i: int) -> torch.device:
+    return torch.device("cuda", i)
+
+
+def sync_all() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+#: 3k's quant leg: the first batches of the Zipf stream (of ``SKEW``'s
+#: ten) and its codebook re-train cadence in ticks
+SKEW_QUANT = dict(batches=4, retrain=4)
+
+
+def gather_witness(drv, queries, quant: bool, log=say) -> None:
+    """The unfused gather of the plane (``posting_scan_gather`` or
+    ``pq_scan_gather``) launched on the last shard's own state, on its
+    card, and held against its plain version on the same inputs: the
+    per-device opt-in and grid cache of a gather past the first card.
+    Made after the path's launches were read, so it does not count."""
+    from repro_torch.core import version_manager as vm
+    from repro_torch.kernels import ops, ref
+    from repro_torch.quant import pq
+    sh = drv.sharded
+    s = sh.n_shards - 1
+    st, dev = sh.local(s), sh.devices[s]
+    with sh.on(s):
+        q = torch.as_tensor(queries, device=dev)
+        vis = vm.visible(st.rec_meta, st.allocated, st.global_version)
+        _, pr = ref.stable_topk(ref.centroid_score(q, st.centroids, vis),
+                                min(drv.cfg.nprobe, sh.pool))
+        valid = st.slot_valid & vis[:, None]
+        if quant:
+            luts = pq.lookup_tables(st.pq_codebooks, q)
+            slot = st.pq_posting_slot.clamp(0, luts.shape[1] - 1)
+            name = "pq_scan_gather"
+            got = ops.pq_scan_gather(luts, st.codes, st.pq_posting_slot,
+                                     st.slot_valid, vis, pr)
+            require_exact(f"{name} on {dev}", (got,),
+                          (ref.pq_scan_gather(luts, st.codes, slot, valid,
+                                              pr),))
+            err = 0.0
+        else:
+            name = "posting_scan_gather"
+            got = ops.posting_scan_gather(q, st.vectors, st.slot_valid, vis,
+                                          pr)
+            err = require_close(f"{name} on {dev}", got,
+                                ref.posting_scan_gather(q, st.vectors, valid,
+                                                        pr))
+        torch.cuda.synchronize(dev)
+    log(f"  {name} on shard {s}'s state on {dev} {tuple(got.shape)}: "
+        f"held against its plain version (max err {err:.3g}"
+        f"{', exact' if quant else ''})")
+
+
+def skew_layouts(ops, ref, plane: str, cfg, batches, queries, S: int,
+                 seed: int, log=say, **kw) -> dict:
+    """One plane of phase 3k: the stream on S shards all on the first
+    card, then one a card; the two runs' search and exact ids and
+    scores, stats, occupancy and snapshots equal bit for bit, and every
+    kernel of ``SHARD_KERNELS[plane]`` launched on the multi-card run and
+    held against its plain version on the inputs of a card past the
+    first.  Returns the multi-card run's launches."""
+    from repro_torch.api import make_index
+    from repro_torch.core import metrics
+    from repro_torch.distributed import make_mesh
+    cards = torch.cuda.device_count()
+    per = len(batches[0])
+    names = SHARD_KERNELS[plane]
+    meshes = {"one card": make_mesh((1, S), ("data", "model"),
+                                    devices=[card(0)] * S),
+              "one shard a card": make_mesh((1, S), ("data", "model"),
+                                            devices=[card(i)
+                                                     for i in range(S)])}
+    runs, launched = {}, {}
+    for label, mesh in meshes.items():
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        multi = label != "one card"
+        held = (held_on_path(ops, ref, names, log) if multi
+                else nullcontext())
+        with held as seen:
+            drv = make_index("ubis-sharded", cfg, batches[0], mesh=mesh,
+                             seed=seed, round_size=2048,
+                             bg_ops_per_round=64, drain_per_tick=2048,
+                             migrate_per_tick=SKEW["migrate"], **kw)
+            ticks = 0
+            for bi, b in enumerate(batches):
+                drv.insert(b, np.arange(bi * per, (bi + 1) * per))
+                ticks += drv.flush(max_ticks=SKEW["flush"])
+            found = drv.search(queries, 10)
+            truth = drv.exact(queries, 10)
+        sync_all()
+        if multi:
+            launched = ops.launch_counts()
+            log(f"  3k {plane} launches on the multi-card path: "
+                f"{json.dumps(launched)}")
+            for name in names:
+                if launched[name] <= 0:
+                    fail(f"kernel {name} was never launched on the "
+                         f"multi-card sharded {plane} path")
+                if not any(key[0] != str(card(0)) for key, _ in seen[name]):
+                    fail(f"kernel {name} was never held on the inputs of "
+                         "a card past the first")
+            gather_witness(drv, queries[:32], plane == "quant", log)
+        drv.check_replicas()
+        placement_line(drv.sharded, log)
+        snap = drv.snapshot()
+        runs[label] = dict(
+            ids=found.ids, scores=found.scores, exact=truth.ids,
+            exact_scores=truth.scores, occ=drv.shard_occupancy(),
+            stats={k: float(drv.stats[k]) for k in (
+                "inserted", "rejected", "migrated", "bg_ops", "bg_gc",
+                "host_cached", "drained")},
+            snap={f: getattr(snap, f).cpu() for f in (
+                "vectors", "ids", "slot_valid", "centroids", "rec_meta",
+                "allocated", "id_loc", "cache_valid", "codes",
+                "pq_codebooks")},
+            recall=metrics.recall_at_k(found.ids, truth.ids),
+            seconds=time.perf_counter() - t0, ticks=ticks,
+            search_s=float(found.seconds))
+        r = runs[label]
+        log(f"  3k {plane} {label} ("
+            f"{', '.join(str(d) for d in mesh.devices)}): "
+            f"{r['seconds']:.1f} s, {ticks} ticks, recall@10 "
+            f"{r['recall']:.4f}, migrated {r['stats']['migrated']:.0f}, "
+            f"occupancy {r['occ'].tolist()}, search of {len(queries)} "
+            f"{r['search_s'] * 1e3:.3f} ms")
+        del drv, snap
+        for i in range(cards):
+            with torch.cuda.device(i):
+                torch.cuda.empty_cache()
+    a, b = runs["one card"], runs["one shard a card"]
+    for key in ("ids", "scores", "exact", "exact_scores", "occ"):
+        if not np.array_equal(a[key], b[key]):
+            fail(f"3k {plane}: {key} differ between one card and one "
+                 "shard a card")
+    if a["stats"] != b["stats"]:
+        fail(f"3k {plane}: stats differ: {a['stats']} vs {b['stats']}")
+    for f in a["snap"]:
+        if not torch.equal(a["snap"][f], b["snap"][f]):
+            fail(f"3k {plane}: snapshot field {f} differs between the "
+                 "layouts")
+    log(f"  3k {plane}: one shard a card = all {S} shards on one card, bit "
+        "for bit: search and exact ids and scores, stats, occupancy, "
+        f"snapshot ({len(a['snap'])} fields)")
+    return launched
+
+
+def multi_card_skew(ops, ref, seed: int, log=say) -> dict:
+    """Phase 3k, where the process sees two or more cards: 3h-3's Zipf
+    stream (``SKEW``: 200,000 x 128-d, 10 batches each flushed,
+    rebalance on) on S = min(``SHARDS``, cards) shards, then the quant
+    plane (PQ16, ``quant_config``) on its first ``SKEW_QUANT`` batches
+    with a codebook re-train, each first all on the first card, then one
+    a card (:func:`skew_layouts`), and each plane's unfused gather on a
+    later card (:func:`gather_witness`).  Returns the launches of the
+    multi-card runs; on a one-card machine prints why it did not run
+    and returns {}."""
+    import dataclasses
+    from repro_torch.core.types import UBISConfig
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"  3k not run: the process sees {cards} card "
+            f"({torch.cuda.get_device_name(0)}); one shard a card needs "
+            "two or more")
+        return {}
+    S = min(SHARDS, cards)
+    cfg = UBISConfig(dim=128, max_postings=65504, capacity=96, l_min=10,
+                     l_max=80, nprobe=32, cache_capacity=4096,
+                     max_ids=1 << 21)
+    K, per = SKEW["clusters"], SKEW["n"] // SKEW["batches"]
+    rng = np.random.default_rng(seed + 17)
+    cents = (rng.standard_normal((K, 128)) * 5).astype(np.float32)
+    queries = (cents[rng.integers(0, K, 256)]
+               + rng.standard_normal((256, 128))).astype(np.float32)
+    w = 1.0 / (np.arange(K) + 1) ** SKEW["zipf"]
+    batches = [(cents[rng.choice(K, size=per, p=w / w.sum())]
+                + rng.standard_normal((per, 128))).astype(np.float32)
+               for _ in range(SKEW["batches"])]
+    launched = skew_layouts(ops, ref, "float", cfg, batches, queries, S,
+                            seed, log)
+    qcfg = dataclasses.replace(cfg, **quant_config(128))
+    for k, v in skew_layouts(ops, ref, "quant", qcfg,
+                             batches[:SKEW_QUANT["batches"]], queries, S,
+                             seed, log,
+                             pq_retrain_every=SKEW_QUANT["retrain"]).items():
+        launched[k] = launched.get(k, 0) + v
+    return launched
 
 
 # ---------------------------------------------------------------------------
@@ -2842,7 +3084,7 @@ def held_kinds(held) -> set:
     """(Lq, Lk, causal, window) of each ``flash_attention`` call held."""
     out = set()
     for key, _ in held["flash_attention"]:
-        a = dict(key)
+        a = dict(key[1:])                   # key[0]: the inputs' device
         out.add((a["q"][2], a["k"][2], a.get("causal", True),
                  a.get("window")))
     return out
@@ -3801,6 +4043,47 @@ def profile_windows(drv, stream, qdrv, qstream, tdrv, tstream,
     return windows
 
 
+def guard_cost(ops, dev, n: int = 200_000) -> None:
+    """Host microseconds a launch pays for the device guard of the
+    kernel wrappers (the card already current: the common case, and
+    every sharded stage's) and for ``ops``' same-device check of the
+    inputs, each the mean of ``n`` calls."""
+    from repro_torch.kernels import _nvcc
+    d = torch.device(dev.type, torch.cuda.current_device())
+    q = torch.zeros(4, 8, device=d)
+    c = torch.zeros(16, 8, device=d)
+    v = torch.ones(16, dtype=torch.bool, device=d)
+    t = time.perf_counter()
+    for _ in range(n):
+        with _nvcc.on_device(d):
+            pass
+    guard = (time.perf_counter() - t) / n * 1e6
+    t = time.perf_counter()
+    for _ in range(n):
+        ops._on_card(q, c, v)
+    check = (time.perf_counter() - t) / n * 1e6
+    say(f"  device guard a launch (card current): {guard:.3f} us; the "
+        f"inputs' same-device check a call: {check:.3f} us (host time, "
+        f"mean of {n:,})")
+
+
+def parent_phase_times(path: str) -> dict:
+    """Phase -> seconds from the ``  phase 3h: ... s`` lines of another
+    run's standard output."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            m = re.match(r"\s+phase (3[a-z]): ([0-9.]+) s", line)
+            if m:
+                out[m.group(1)] = float(m.group(2))
+    return out
+
+
+def parent_phase_text(times: dict, phase: str) -> str:
+    return (f" (parent tree, same call: {times[phase]:.1f} s)"
+            if phase in times else "")
+
+
 def parent_times(path: str) -> dict:
     """Kernel name -> ms from the ``{"kernels": ...}`` line of another
     run's standard output."""
@@ -3869,6 +4152,7 @@ def main() -> None:
         kmeans_checks(ops, ref, dev, args.seed)
         torch.cuda.empty_cache()
     say(f"  {time.perf_counter() - t:.1f} s")
+    guard_cost(ops, dev)
 
     paths, counts = {}, {}
     for label, quant in (("float", False), ("quant", True)):
@@ -3953,15 +4237,18 @@ def main() -> None:
             sequential_checks(dev, ops, args.seed)):
         counts = {k: counts.get(k, 0) + v for k, v in launched.items()}
 
+    parent_phase = (parent_phase_times(args.parent_log) if args.parent_log
+                    else {})
     say(f"phase 3h: the sharded plane, make_index('ubis-sharded') on "
-        f"{SHARDS} logical shards of the card")
+        f"{SHARDS} shards of the card, each in storage of its own")
     t = time.perf_counter()
     launched, sdrv, sstream, _ = sharded_path(
         dev, ops, (paths["quant"][0], paths["quant"][3]), args.seed)
     counts = {k: counts.get(k, 0) + v for k, v in launched.items()}
     launched = skew_runs(dev, ops, args.seed)
     counts = {k: counts.get(k, 0) + v for k, v in launched.items()}
-    say(f"  phase 3h: {time.perf_counter() - t:.1f} s")
+    say(f"  phase 3h: {time.perf_counter() - t:.1f} s"
+        + parent_phase_text(parent_phase, "3h"))
 
     mode = compute_mode()
     say(f"phase 3i: the cluster plane, make_index('ubis-cluster'); compute "
@@ -3974,7 +4261,8 @@ def main() -> None:
                      seam_check(dev, ops, ref, args.seed),
                      figdist_runs(dev, ops, args.seed)):
         counts = {k: counts.get(k, 0) + v for k, v in launched.items()}
-    say(f"  phase 3i: {time.perf_counter() - t:.1f} s")
+    say(f"  phase 3i: {time.perf_counter() - t:.1f} s"
+        + parent_phase_text(parent_phase, "3i"))
 
     say("phase 3j: the backbone's decode path, tinyllama-1.1b at full width "
         f"(prefill {DECODE['batch']} x {DECODE['prompt']}, KV caches of "
@@ -3987,6 +4275,13 @@ def main() -> None:
     counts = {k: counts.get(k, 0) + v for k, v in launched.items()}
     torch.cuda.empty_cache()
     say(f"  phase 3j: {time.perf_counter() - t:.1f} s")
+
+    say(f"phase 3k: the sharded plane with one shard a card "
+        f"({torch.cuda.device_count()} cards in this process)")
+    t = time.perf_counter()
+    for k, v in multi_card_skew(ops, ref, args.seed).items():
+        counts[k] = counts.get(k, 0) + v        # {} on a one-card machine
+    say(f"  phase 3k: {time.perf_counter() - t:.1f} s")
 
     say("phase 4: kernel times on the main paths' inputs")
     fdrv, fq, _, fstream, _ = paths["float"]

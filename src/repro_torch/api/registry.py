@@ -23,10 +23,12 @@ random draws ``kmeans_init``, ``pq_init`` and ``pq_keys``.
 engines (ubis/spfresh) use them for k-means seeding only (NOT inserted);
 the build-once engines (spann, freshdiskann) ingest them under
 ``seed_ids`` (default ``arange``).  ``ubis-sharded`` takes a ``mesh``
-(``distributed.sharding.make_mesh``: S logical shards of one device);
-``ubis-cluster`` runs ``ShardedUBISDriver`` workers behind the command
-protocol (``workers``, ``backend="local" | "multiprocess"``,
-``mesh_shape``: each worker's logical shards), its draws one per worker
+(``distributed.sharding.make_mesh``: S shards on one device or one a
+card), by default ``distributed.default_mesh`` (one shard on each card
+of the process, the JAX rule); ``ubis-cluster`` runs
+``ShardedUBISDriver`` workers behind the command protocol (``workers``,
+``backend="local" | "multiprocess"``, ``mesh_shape``: each worker's
+shards, over its cards when it sees several), its draws one per worker
 when ``workers > 1`` (``cluster/coordinator.py``).
 """
 from __future__ import annotations
@@ -163,7 +165,8 @@ _REGISTRY: dict[str, EngineSpec] = {spec.name: spec for spec in (
     EngineSpec(
         name="ubis-sharded",
         description="ShardedUBISDriver: host orchestration over the "
-                    "sharded programs (S logical shards of one device)",
+                    "sharded programs (one model shard a card by "
+                    "default, or S shards of one device)",
         build=_build_sharded, kwargs=_SHARDED_KW,
         supports_tier=True, supports_pq=True, supports_shards=True,
         audit="state"),

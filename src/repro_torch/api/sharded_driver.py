@@ -40,6 +40,16 @@ EMPTY; ``snapshot()`` copies the global view and passes it through
 ``update.ensure_free_stack``, which rebuilds the canonical stack and
 checks it.
 
+**Devices.**  Shard s lives on ``mesh.devices[s]``: ``default_mesh``
+puts one shard on each card of the process, ``make_mesh(...,
+devices=[...])`` names them, ``make_mesh(..., device=d)`` puts every
+shard on ``d``.  The driver's own work (the merges, the host reads, the
+cold tier's planning) runs on the controller, shard 0's device.  Code
+that works on the whole index reads it through the global view
+(``ShardedState.gather`` / ``scatter``, or the field-by-field
+``GlobalView`` that ``state`` returns); the replicated fields it needs
+(the id map, the cache, the version) are read from shard 0's replica.
+
 Like ``UBISDriver`` it runs on the card unless the caller passes
 ``device="cpu"`` (or a mesh on the CPU), and takes its random draws as
 arguments: ``kmeans_init``, ``pq_init`` and ``pq_keys`` (see
@@ -47,7 +57,6 @@ arguments: ``kmeans_init``, ``pq_init`` and ``pq_keys`` (see
 """
 from __future__ import annotations
 
-import dataclasses
 import time
 from typing import Optional
 
@@ -60,12 +69,12 @@ from ..core.build import initial_state
 from ..core.driver import (EXACT_CHUNK_FLOATS, GC_LAG, INSERT_RETRIES,
                            PQ_SEED_OFFSET, SearchDispatch, draw_kmeans_init,
                            draw_pq_init, resolve_device)
-from ..core.sharded import (ShardedState, check_replicas,
+from ..core.sharded import (GlobalView, ShardedState, check_replicas,
                             make_sharded_background, make_sharded_delete,
                             make_sharded_exact, make_sharded_insert,
                             make_sharded_migrate, make_sharded_search)
-from ..core.types import STATUS_NORMAL, IndexState, UBISConfig
-from ..distributed.sharding import Mesh, default_mesh
+from ..core.types import STATUS_NORMAL, IndexState, UBISConfig, tile_bytes
+from ..distributed.sharding import Mesh, check_device, default_mesh
 from ..obs import Obs
 from .rebalance import RebalancePlanner
 from .types import SearchResult, TickReport, UpdateResult
@@ -75,7 +84,8 @@ class ShardedUBISDriver:
     """Streaming driver over a sharded index (a ``StreamingIndex``).
 
     ``mesh``: a ``distributed.sharding.Mesh`` (default
-    ``default_mesh(cfg, device)``); its device is the driver's.  The other
+    ``default_mesh(cfg, device)``: one shard a card); its controller
+    (shard 0's device) is the driver's ``device``.  The other
     knobs are the JAX package's, and ``device``, ``kmeans_init``,
     ``pq_init`` and ``pq_keys`` are ``UBISDriver``'s."""
 
@@ -106,7 +116,8 @@ class ShardedUBISDriver:
         self.cfg = cfg
         if mesh is None:
             mesh = default_mesh(cfg, device)
-        elif device is not None and resolve_device(device) != mesh.device:
+        elif (device is not None
+              and check_device(resolve_device(device)) != mesh.device):
             raise ValueError(f"device {device} is not the mesh's "
                              f"{mesh.device}")
         self.mesh = mesh
@@ -181,9 +192,10 @@ class ShardedUBISDriver:
     # ---- the global view ----------------------------------------------
 
     @property
-    def state(self) -> IndexState:
-        """The global view of the index (its replicated fields are shard
-        0's replica)."""
+    def state(self) -> GlobalView:
+        """The global view of the index: a sharded field read gathers it
+        onto the controller, a replicated field is shard 0's replica
+        (``core.sharded.GlobalView``)."""
         return self._sh.state
 
     @state.setter
@@ -192,7 +204,7 @@ class ShardedUBISDriver:
 
     @property
     def sharded(self) -> ShardedState:
-        """The index as S logical shards (views and replicas)."""
+        """The index as S shards, shard s on ``mesh.devices[s]``."""
         return self._sh
 
     def check_replicas(self) -> None:
@@ -204,8 +216,9 @@ class ShardedUBISDriver:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for d in dict.fromkeys(self.mesh.devices):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     # ------------------------------------------------------------------
     # foreground
@@ -336,7 +349,7 @@ class ShardedUBISDriver:
         if self.tier is not None:
             disp.loc = self.state.id_loc[
                 found[:q.shape[0]].long().clamp(0, self.cfg.max_ids - 1)]
-            disp.spilled = self.state.tier_spilled.clone()
+            disp.spilled = self.state.tier_spilled      # a gathered copy
         return disp
 
     def collect_search(self, disp: SearchDispatch) -> SearchResult:
@@ -506,9 +519,10 @@ class ShardedUBISDriver:
 
     def shard_occupancy(self) -> np.ndarray:
         """Live vectors per posting-pool shard, computed now (no tick
-        required): the ``figskew`` spread metric."""
-        from ..core.metrics import shard_live_vectors
-        return shard_live_vectors(self.state, self.n_shards)
+        required): the ``figskew`` spread metric, each shard read on its
+        own device."""
+        from ..core.metrics import live_vectors
+        return np.array([live_vectors(st).sum() for st in self._sh.shards])
 
     # ---- host-mediated vector cache -----------------------------------
 
@@ -577,25 +591,28 @@ class ShardedUBISDriver:
         return self.exec_pq_retrain()
 
     def exec_pq_retrain(self) -> int:
-        """Execute one codebook re-train round now, on the global view;
-        the replicas follow."""
+        """Execute one codebook re-train round now, on the whole index
+        gathered onto the controller (it reads every pool slot), then
+        scattered back; the replicas follow."""
         from ..quant import pq
         if self.tier is not None:
             # promote the spilled postings pinned to the evicted slot first
             _, n = self.tier.promote_retrain_pinned(self.state)
             self.stats["tier_promoted"] += n
-        M, C, _ = self.state.vectors.shape
+        st = self._sh.gather()
+        M, C, _ = st.vectors.shape
         if self._pq_keys is not None:
             keys = self._dev(np.array(next(self._pq_keys), np.float32))
         else:
             keys = torch.rand((M * C,), generator=self._pq_gen,
                               device=self.device)
-        evict = (int(self.state.pq_active) + 1) % self.cfg.pq_versions
-        pq.retrain_round(self.state, self.cfg, keys)
+        evict = (int(st.pq_active) + 1) % self.cfg.pq_versions
+        pq.retrain_round(st, self.cfg, keys)
+        self._sh.scatter(st)
         self._sh.replicate()
         self.stats["pq_retrains"] += 1
         self.stats["pq_generation"] = int(
-            self.state.pq_slot_gen[self.state.pq_active.long()])
+            st.pq_slot_gen[st.pq_active.long()])
         self.obs.emit("pq_retrain", reason="cadence", evicted_slot=evict,
                       generation=int(self.stats["pq_generation"]))
         return 1
@@ -640,8 +657,7 @@ class ShardedUBISDriver:
         out = np.zeros(self.n_shards, np.int64)
         if self.tier is not None:
             pool_span = self.cfg.max_postings // self.n_shards
-            from ..core.types import tile_bytes
-            tb = tile_bytes(self.state)
+            tb = tile_bytes(self._sh.shards[0])
             for pid in self.tier.pool.pids():
                 out[int(pid) // pool_span] += tb
         return out
@@ -653,17 +669,25 @@ class ShardedUBISDriver:
         (``update.ensure_free_stack`` checks it: the sharded rounds leave
         a fail-safe EMPTY stack).  With the cold tier the spilled float
         tiles are written into the copy (flags stay set)."""
-        snap = IndexState(**{f.name: getattr(self.state, f.name).clone()
-                             for f in dataclasses.fields(IndexState)})
+        snap = self._sh.gather()
         if self.tier is not None:
             snap = self.tier.snapshot_fill(snap)
         return update.ensure_free_stack(snap)
 
-    def load_snapshot(self, state: IndexState) -> "ShardedUBISDriver":
-        """Adopt a ``snapshot()`` state (the driver takes ownership of its
-        tensors): tier residency is re-derived from the persisted flags,
-        then the state is laid out over this driver's shards.  Returns
+    def load_snapshot(self, state) -> "ShardedUBISDriver":
+        """Adopt a ``snapshot()`` state: an ``IndexState`` (laid out over
+        this driver's shards) or a ``ShardedState`` on this driver's mesh
+        (a checkpoint restored onto ``drv.sharded``, taken as it is).
+        Tier residency is re-derived from the persisted flags.  Returns
         self."""
+        if isinstance(state, ShardedState):
+            if state.mesh.devices != self.mesh.devices or \
+                    state.n_shards != self.n_shards:
+                raise ValueError("the sharded state lives on another mesh")
+            if self.tier is not None:
+                self.tier.adopt(state.state)
+            self._sh = state
+            return self
         if self.tier is not None:
             state = self.tier.adopt(state)
         self.state = state
@@ -673,14 +697,16 @@ class ShardedUBISDriver:
         """Bytes of the index across both tiers (the replicas beyond the
         first are not counted, as the reference counts the global
         arrays)."""
-        from ..core.types import state_memory_bytes
-        return state_memory_bytes(self.state)
+        return self._sh.memory_bytes()
 
     def memory_tiers(self) -> dict:
         """Device/host byte split; sums to ``memory_bytes()``."""
-        if self.tier is not None:
-            return self.tier.memory_tiers(self.state)
-        return {"device": self.memory_bytes(), "host": 0}
+        total = self.memory_bytes()
+        if self.tier is None:
+            return {"device": total, "host": 0}
+        host = int(self.state.tier_spilled.sum()) * tile_bytes(
+            self._sh.shards[0])
+        return {"device": total - host, "host": host}
 
     def exact(self, queries, k: int) -> SearchResult:
         """Exact top-k over live contents (recall oracle): the sharded

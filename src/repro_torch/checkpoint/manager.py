@@ -12,7 +12,12 @@ Properties:
   * keep-N  - bounded disk usage;
   * elastic - checkpoints hold host arrays keyed by tree path, and a
               restore places each on the template's device (or the one
-              asked for), whatever device the save came from.
+              asked for), whatever device the save came from; a
+              ``ShardedState`` template (a sharded driver's
+              ``sharded``) is restored laid out over its mesh's devices,
+              each shard's rows copied from the host to its own device
+              (the reference's per-sharding ``device_put``,
+              ``repro/checkpoint/manager.py:84``).
 
 The file is the JAX package's (``repro/checkpoint/manager.py``): one npz
 keyed by tree path plus a pickled ``.meta`` beside it.  Keys join the
@@ -44,12 +49,28 @@ from ..core.types import IndexState
 _STEP_RE = re.compile(r"step_(\d+)$")
 
 
+def _sharded(tree) -> bool:
+    from ..core.sharded import ShardedState
+    return isinstance(tree, ShardedState)
+
+
+def _host_state(sh) -> IndexState:
+    """A ``ShardedState`` as one ``IndexState`` on the host: each shard's
+    rows copied from its own device, one replica of the replicated
+    fields."""
+    return IndexState(**{f.name: sh.field(f.name, "cpu")
+                         for f in dataclasses.fields(IndexState)})
+
+
 def _items(tree, prefix: str):
     """(key, leaf) pairs in the JAX flatten order: dict keys sorted,
-    sequences in order, ``IndexState`` fields in declaration order;
-    ``None`` is an empty subtree."""
+    sequences in order, ``IndexState`` fields in declaration order (a
+    ``ShardedState`` as the whole index); ``None`` is an empty
+    subtree."""
     if tree is None:
         return
+    if _sharded(tree):
+        tree = _host_state(tree)
     if isinstance(tree, IndexState):
         from ..bridge import state_to_numpy
         for name, a in state_to_numpy(tree).items():
@@ -108,6 +129,19 @@ def _restore(tmpl, prefix: str, data, device):
             f.name: _leaf(getattr(tmpl, f.name), _join(prefix, "." + f.name),
                           data, device)
             for f in dataclasses.fields(IndexState)})
+    if _sharded(tmpl):
+        # the whole index on the host, then each shard's part to its own
+        # device; the template's layout decides (``device`` is not used)
+        whole = {}
+        for f in dataclasses.fields(IndexState):
+            part = getattr(tmpl.shards[0], f.name)
+            shape = tuple(part.shape)
+            if tmpl.placements[f.name].model_dim is not None:
+                shape = (shape[0] * tmpl.n_shards,) + shape[1:]
+            whole[f.name] = torch.empty(shape, dtype=part.dtype,
+                                        device="meta")
+        state = _restore(IndexState(**whole), prefix, data, "cpu")
+        return type(tmpl)(state, tmpl.mesh)
     if isinstance(tmpl, dict):
         return {k: _restore(v, _join(prefix, str(k)), data, device)
                 for k, v in tmpl.items()}
@@ -254,6 +288,8 @@ def _host_copy(tree):
     if isinstance(tree, IndexState):
         return IndexState(**{f.name: _host_copy(getattr(tree, f.name))
                              for f in dataclasses.fields(IndexState)})
+    if _sharded(tree):
+        return _host_state(tree)
     if isinstance(tree, dict):
         return {k: _host_copy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

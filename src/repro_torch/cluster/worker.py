@@ -58,16 +58,34 @@ def _np(x):
     return x
 
 
-def logical_mesh(cfg, devices: int, device):
-    """The JAX package's ``default_mesh`` over ``devices`` logical shards
-    of ``device``: all of them on the ``model`` axis, falling back toward
-    fewer shards until ``max_postings`` divides."""
-    from ..distributed import make_mesh
-    n = int(devices)
-    m = n
-    while m > 1 and (cfg.max_postings % m or n % m):
-        m -= 1
-    return make_mesh((1, m), ("data", "model"), device=device)
+def logical_mesh(cfg, devices: int, device, shape=None):
+    """A worker's mesh (``repro/cluster/worker.py:75``): ``shape``
+    (data, model), or without it the JAX rule over the worker's
+    ``devices`` (its ``--devices`` count): ``model_shards(max_postings,
+    devices)`` shards on the ``model`` axis.  The shard count never
+    depends on the host's cards; only where the shards live does:
+
+      * ``device`` is ``"cuda"`` with no index and the process sees at
+        least S > 1 cards: shard j on card j, the worker's own cards;
+      * otherwise (a named card such as ``"cuda:1"``, fewer cards than
+        shards, one card, the CPU): all S shards on ``device``, as
+        workers that share one card run.
+
+    Either layout gives the same answers bit for bit."""
+    import torch
+
+    from ..core.driver import resolve_device
+    from ..distributed import make_mesh, model_shards
+    dev = resolve_device(device)
+    if shape is None:
+        shape = (1, model_shards(cfg.max_postings, devices))
+    shape = tuple(int(n) for n in shape)
+    S = shape[-1]
+    if (dev.type == "cuda" and dev.index is None
+            and 1 < S <= torch.cuda.device_count()):
+        return make_mesh(shape, ("data", "model"),
+                         devices=[torch.device("cuda", j) for j in range(S)])
+    return make_mesh(shape, ("data", "model"), device=dev)
 
 
 class WorkerRuntime:
@@ -103,14 +121,10 @@ class WorkerRuntime:
     def _cmd_init(self, p: dict) -> dict:
         from ..api.sharded_driver import ShardedUBISDriver
         from ..core.driver import resolve_device
-        from ..distributed import make_mesh
         from ..obs import Obs
         cfg = protocol.payload_to_cfg(p["cfg"])
         device = resolve_device(p.get("device"))
-        mesh_shape = p.get("mesh_shape")
-        mesh = (make_mesh(tuple(mesh_shape), ("data", "model"),
-                          device=device)
-                if mesh_shape else logical_mesh(cfg, self.devices, device))
+        mesh = logical_mesh(cfg, self.devices, device, p.get("mesh_shape"))
         kw = dict(p.get("kwargs") or {})
         for name in ("kmeans_init", "pq_init", "pq_keys"):
             if p.get(name) is not None:
@@ -139,6 +153,13 @@ class WorkerRuntime:
         guard: no ``jax`` and no ``repro`` in a worker)."""
         import sys
         return {"modules": sorted({m.split(".")[0] for m in sys.modules})}
+
+    def _cmd_placement(self, p: dict) -> dict:
+        """Each shard's device, after ``core.sharded.audit_placement``
+        (which raises if a shard's tensor is elsewhere or shared)."""
+        from ..core.sharded import audit_placement
+        audit_placement(self.drv._sh)
+        return {"devices": [str(d) for d in self.drv._sh.devices]}
 
     def _cmd_launches(self, p: dict) -> dict:
         """This process's kernel launch counts (``ops.launch_counts``);
@@ -306,7 +327,7 @@ class WorkerRuntime:
         order = np.flatnonzero(ok)
         order = order[np.argsort(-lengths[order], kind="stable")]
         sv = st.slot_valid.cpu().numpy()
-        sel_ids, sel_vecs = [], []
+        picks = []
         got = 0
         for pid in order:
             if got >= want:
@@ -314,14 +335,20 @@ class WorkerRuntime:
             slots = np.flatnonzero(sv[pid])[:want - got]
             if slots.size == 0:
                 continue
-            sel_ids.append(st.ids[int(pid)].cpu().numpy()[slots])
-            sel_vecs.append(st.vectors[int(pid)].float().cpu().numpy()[slots])
+            picks.append((int(pid), slots))
             got += slots.size
         if not got:
             return {"ids": np.empty(0, np.int32),
                     "vecs": np.empty((0, drv.cfg.dim), np.float32)}
-        ids = np.concatenate(sel_ids).astype(np.int32)
-        vecs = np.concatenate(sel_vecs)
+        # the picked postings' rows, read on the shards that own them
+        import torch
+        pids = torch.tensor([p for p, _ in picks], dtype=torch.int64)
+        id_rows = st.get_rows("ids", pids).cpu().numpy()
+        vec_rows = st.get_rows("vectors", pids).float().cpu().numpy()
+        ids = np.concatenate([id_rows[j][slots] for j, (_, slots)
+                              in enumerate(picks)]).astype(np.int32)
+        vecs = np.concatenate([vec_rows[j][slots] for j, (_, slots)
+                               in enumerate(picks)])
         r = drv.delete(ids)
         if int(r.deleted) != len(ids):
             # tombstoning raced something structural: hand over only what

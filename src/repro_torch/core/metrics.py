@@ -31,14 +31,19 @@ def live_posting_lengths(state) -> np.ndarray:
     return lens[lens > 0]
 
 
+def live_vectors(state) -> np.ndarray:
+    """Live vectors per posting of ``state`` (0 where the posting is free
+    or retired), read on the state's device."""
+    status = (state.rec_meta & 3).cpu().numpy()
+    alive = state.allocated.cpu().numpy() & (status != STATUS_DELETED)
+    return np.where(alive, state.lengths.cpu().numpy(), 0)
+
+
 def shard_live_vectors(state, n_shards: int) -> np.ndarray:
     """Live vectors per posting-pool shard (contiguous pid blocks over
     the ``model`` axis): the occupancy signal behind ``figskew`` and the
     rebalance acceptance ratio."""
-    status = (state.rec_meta & 3).cpu().numpy()
-    alive = state.allocated.cpu().numpy() & (status != STATUS_DELETED)
-    lens = np.where(alive, state.lengths.cpu().numpy(), 0)
-    return lens.reshape(n_shards, -1).sum(axis=1)
+    return live_vectors(state).reshape(n_shards, -1).sum(axis=1)
 
 
 def occupancy_spread(occ) -> dict:

@@ -38,6 +38,14 @@ stream, which waits on the current stream first; the host waits on the
 copy's event before the pool takes the bytes and ``spill_round`` zeroes
 the device tiles.  Promote tiles go host to device on the side stream,
 and the current stream waits on their event before ``promote_round``.
+
+The rounds read and write rows through the state's row interface
+(``get_rows`` / ``set_rows`` / ``row_parts``), which a sharded index's
+global view (``core.sharded.GlobalView``) shares: a spill's tiles are
+read on the card of the shard that owns each posting and copied to
+pinned memory on that card's side stream; a promote's tiles go to the
+driver's card on its side stream and ``set_rows`` moves each row on to
+its shard's card (no move on one card).
 """
 from __future__ import annotations
 
@@ -51,7 +59,6 @@ from ..kernels.ref import BIG
 from . import version_manager as vm
 from .types import (STATUS_DELETED, STATUS_NORMAL, IndexState, UBISConfig,
                     state_tier_bytes)
-from .version_manager import masked_set_
 
 HEAT_ADD_MAX = 1 << 20        # touch_round saturates each add here
 UINT32_MASK = 0xFFFFFFFF      # heat wraps as the reference's uint32 does
@@ -77,20 +84,12 @@ def decay_round(state: IndexState) -> IndexState:
     return state
 
 
-def gather_tiles(state: IndexState, pids: torch.Tensor) -> torch.Tensor:
-    """The dispatch half of a spill: the planned postings' float tiles as
-    one new device tensor (the caller copies it to the host)."""
-    M = state.lengths.shape[0]
-    return state.vectors[pids.to(device=state.device,
-                                 dtype=torch.int64).clamp(0, M - 1)]
-
-
 def spill_round(state: IndexState, cfg: UBISConfig, pids, valid):
     """The reconcile half of a spill: zero the device float tiles and raise
     ``tier_spilled``.  The caller must have the tile bytes in the host
     pool first: this round destroys the device copy."""
-    masked_set_(state.vectors, pids, 0, valid)
-    masked_set_(state.tier_spilled, pids, True, valid)
+    state.set_rows("vectors", pids, 0, valid)
+    state.set_rows("tier_spilled", pids, True, valid)
     return state
 
 
@@ -98,9 +97,9 @@ def promote_round(state: IndexState, cfg: UBISConfig, pids, tiles, valid):
     """Restore pooled float tiles to the device (bit-identical bytes) and
     clear ``tier_spilled``.  Promoted postings land warm (``heat =
     tier_promote_heat``), so the next spill plan does not evict them."""
-    masked_set_(state.vectors, pids, tiles.to(state.vectors.dtype), valid)
-    masked_set_(state.tier_spilled, pids, False, valid)
-    masked_set_(state.heat, pids, cfg.tier_promote_heat, valid)
+    state.set_rows("vectors", pids, tiles.to(cfg.dtype), valid)
+    state.set_rows("tier_spilled", pids, False, valid)
+    state.set_rows("heat", pids, cfg.tier_promote_heat, valid)
     return state
 
 
@@ -412,8 +411,8 @@ class TierPlan:
     one.  Promote lanes are validated by pool membership."""
 
     spill_pids: np.ndarray                  # (S,) int32
-    spill_tiles: torch.Tensor               # (S, C, d) host copy in flight
-    spill_event: Optional[torch.cuda.Event]  # the copy's end (card only)
+    spill_tiles: list                       # [(positions, host rows)] in flight
+    spill_events: list                      # the copies' ends (card only)
     spill_sig_len: np.ndarray               # (S,) lengths at dispatch
     spill_sig_used: np.ndarray              # (S,) used slots at dispatch
     promote_pids: np.ndarray                # (P,) int32
@@ -466,6 +465,7 @@ class TierManager:
                                    max_moves=max_moves)
         self._counts = np.zeros(cfg.max_postings, np.int64)
         self._stream = torch.cuda.Stream(self.device) if on_card else None
+        self._sides = {}          # another card's side stream (shards)
         self.rerank_host = bool(rerank_host)
         self.obs = obs
         # every commit decision (reconcile and the forced, retrain-pinned
@@ -489,20 +489,59 @@ class TierManager:
 
     # ---- copies between the card and the pool -------------------------
 
+    def _side(self, device: torch.device):
+        """The side stream of ``device`` (the driver's, or a shard's)."""
+        if device == self._stream.device:
+            return self._stream
+        side = self._sides.get(device)
+        if side is None:
+            side = self._sides[device] = torch.cuda.Stream(device)
+        return side
+
     def _to_host(self, tiles: torch.Tensor):
         """Start the copy of device ``tiles`` to pinned host memory on the
-        side stream; returns (host tensor, event) — the bytes are there
-        once the event has completed.  On the CPU: (tiles, None)."""
+        side stream of their card; returns (host tensor, event) — the
+        bytes are there once the event has completed.  On the CPU:
+        (tiles, None)."""
         if self._stream is None:
             return tiles, None
+        dev = tiles.device
+        side = self._side(dev)
         host = torch.empty(tiles.shape, dtype=tiles.dtype, pin_memory=True)
-        self._stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(self._stream):
-            host.copy_(tiles, non_blocking=True)
-            ev = torch.cuda.Event()
-            ev.record(self._stream)
-        tiles.record_stream(self._stream)
+        with torch.cuda.device(dev):
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                host.copy_(tiles, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(side)
+            tiles.record_stream(side)
         return host, ev
+
+    def _spill_copy(self, state, pids: np.ndarray):
+        """Start the copies of the float tiles of ``pids`` to the host,
+        each part from the card it lives on (``state.row_parts``: one
+        part for an ``IndexState``, one a shard for a sharded index's
+        global view): ([(positions in pids, host rows)], the events)."""
+        M = self.cfg.max_postings
+        pids_t = torch.from_numpy(np.asarray(pids, np.int64)).clamp(0, M - 1)
+        parts, events = [], []
+        for at, rows in state.row_parts("vectors", pids_t):
+            host, ev = self._to_host(rows)
+            parts.append((at, host))
+            if ev is not None:
+                events.append(ev)
+        return parts, events
+
+    def _landed(self, parts: list, events: list, n: int) -> torch.Tensor:
+        """Wait for a spill's copies and return its (n, C, d) host tiles."""
+        for ev in events:
+            ev.synchronize()
+        if len(parts) == 1 and len(parts[0][0]) == n:
+            return parts[0][1]          # one part holds them all, in order
+        out = torch.empty((n,) + self.pool.tile_shape, dtype=self.pool.dtype)
+        for at, host in parts:
+            out[at] = host
+        return out
 
     def _to_device(self, tiles: torch.Tensor):
         """Start the copy of pinned host ``tiles`` to the device on the side
@@ -594,15 +633,14 @@ class TierManager:
                              for p in promos],
                    spills=[{"pid": int(p), "reason": "watermark-cold"}
                            for p in spills])
-        spill_tiles, spill_event = self._to_host(
-            gather_tiles(state, torch.from_numpy(spills)))
+        spill_tiles, spill_events = self._spill_copy(state, spills)
         promote_tiles = promote_event = None
         if len(promos):
             promote_tiles, promote_event = self._to_device(
                 self._staged(promos, take=False))
         plan = TierPlan(
             spill_pids=spills, spill_tiles=spill_tiles,
-            spill_event=spill_event,
+            spill_events=spill_events,
             spill_sig_len=rows["lengths"][spills].copy(),
             spill_sig_used=rows["used"][spills].copy(),
             promote_pids=promos, promote_tiles=promote_tiles,
@@ -646,12 +684,12 @@ class TierManager:
                       == plan.spill_sig_used))
         # the copy must have landed before the pool reads the bytes and
         # spill_round zeroes the device tiles
-        if plan.spill_event is not None:
-            plan.spill_event.synchronize()
+        tiles = self._landed(plan.spill_tiles, plan.spill_events,
+                             len(s_pids))
         n_s = int(s_valid.sum())
         if n_s:
             for i in np.flatnonzero(s_valid):
-                self.pool.put(int(s_pids[i]), plan.spill_tiles[i])
+                self.pool.put(int(s_pids[i]), tiles[i])
             state = spill_round(state, cfg, torch.from_numpy(s_pids).to(dev),
                                 torch.from_numpy(s_valid).to(dev))
         self._commit(
@@ -709,10 +747,7 @@ class TierManager:
         pids = np.asarray(pids, np.int32)
         for off in range(0, len(pids), B):
             chunk = pids[off:off + B]
-            tiles, ev = self._to_host(gather_tiles(state,
-                                                   torch.from_numpy(chunk)))
-            if ev is not None:
-                ev.synchronize()
+            tiles = self._landed(*self._spill_copy(state, chunk), len(chunk))
             for i, pid in enumerate(chunk):
                 self.pool.put(int(pid), tiles[i])
             state = spill_round(state, self.cfg,
@@ -768,10 +803,10 @@ class TierManager:
         sp = sp[vis[sp]]
         if len(sp) == 0:
             return np.asarray(found), np.asarray(scores)
-        idx = torch.from_numpy(sp.astype(np.int64)).to(state.device)
+        idx = torch.from_numpy(sp.astype(np.int64))
         es, ei = host_exact_candidates(
-            self.pool, sp, state.ids[idx].cpu().numpy(),
-            state.slot_valid[idx].cpu().numpy(), queries, k)
+            self.pool, sp, state.get_rows("ids", idx).cpu().numpy(),
+            state.get_rows("slot_valid", idx).cpu().numpy(), queries, k)
         return merge_topk(found, scores, es, ei, k)
 
     # ---- snapshot / restore -------------------------------------------

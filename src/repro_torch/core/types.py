@@ -168,6 +168,25 @@ class IndexState:
         vis = self.allocated & ((self.rec_meta & 3) != STATUS_DELETED)
         return torch.sum(self.lengths * vis)
 
+    # ---- rows by posting id: the interface this state shares with a
+    # sharded index's global view (``core.sharded.GlobalView``)
+
+    def row_parts(self, name: str, pids: torch.Tensor) -> list:
+        """``[(positions in pids, rows)]``, the rows of field ``name`` at
+        ``pids`` where they live: here one part, on this state's device."""
+        return [(torch.arange(pids.numel()), self.get_rows(name, pids))]
+
+    def get_rows(self, name: str, pids: torch.Tensor) -> torch.Tensor:
+        """``<name>[pids]`` on this state's device."""
+        return getattr(self, name)[pids.to(device=self.device,
+                                           dtype=torch.int64)]
+
+    def set_rows(self, name: str, pids: torch.Tensor, value,
+                 valid: torch.Tensor) -> None:
+        """``<name>[pids[j]] = value[j]`` where ``valid[j]``, in place."""
+        from .version_manager import masked_set_
+        masked_set_(getattr(self, name), pids, value, valid)
+
 
 @dataclasses.dataclass
 class BackgroundRound:

@@ -372,22 +372,30 @@ static int launch_scan(int N, cudaStream_t st, const float* q,
                        int C, int d, int P, int R, int stage_floats,
                        int qs_floats, const PsgLayout& lay, float* out) {
   auto kern = posting_scan_gather_kernel<BULK, V4>;
-  static int cached_smem = -1, cached_blocks = 0;   // grid for this smem
-  if (lay.bytes != cached_smem) {
+  // the opt-in and the grid for this smem, per device (the attribute is
+  // set on the current device, which the wrapper makes the tensors')
+  static int cached_smem[64], cached_blocks[64];
+  static unsigned long long seen = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const int slot = dev & 63;
+  if (!((seen >> slot) & 1ull) || lay.bytes != cached_smem[slot] ||
+      dev >= 64) {
     if (lay.bytes > 48 * 1024) {
       cudaError_t err = cudaFuncSetAttribute(
           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes);
       if (err != cudaSuccess) return (int)err;
     }
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
+    int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
                                                   PSG_THREADS, lay.bytes);
-    cached_blocks = std::max(1, per_sm) * std::max(1, sms);
-    cached_smem = lay.bytes;
+    cached_blocks[slot] = std::max(1, per_sm) * std::max(1, sms);
+    cached_smem[slot] = lay.bytes;
+    seen |= 1ull << slot;
   }
-  kern<<<std::min(N, cached_blocks), PSG_THREADS, lay.bytes, st>>>(
+  const int blocks = cached_blocks[slot];
+  kern<<<std::min(N, blocks), PSG_THREADS, lay.bytes, st>>>(
       q, vec, slot_valid, entries, items, totals, next_item, C, d, P, R,
       stage_floats, qs_floats, lay, out);
   return (int)cudaGetLastError();

@@ -1,10 +1,13 @@
-"""Distribution: the logical mesh of the sharded plane and its
-collectives, the backbone's logical-axis rules, and the straggler
-monitor (host-side control plane)."""
-from .sharding import (Mesh, all_gather, default_mesh, logical_to_spec,
-                       make_mesh, make_rules, pmax, psum)
+"""Distribution: the sharded plane's mesh (one ``model`` shard a device)
+and its collectives, the backbone's logical-axis rules and their device
+placements, and the straggler monitor (host-side control plane)."""
+from .sharding import (Mesh, Placement, all_gather, batch_sharding,
+                       default_mesh, gather, logical_to_spec, make_mesh,
+                       make_rules, model_shards, place, pmax, psum,
+                       to_named_sharding)
 from .straggler import StepTimer, StragglerMonitor
 
-__all__ = ["Mesh", "StepTimer", "StragglerMonitor", "all_gather",
-           "default_mesh", "logical_to_spec", "make_mesh", "make_rules",
-           "pmax", "psum"]
+__all__ = ["Mesh", "Placement", "StepTimer", "StragglerMonitor",
+           "all_gather", "batch_sharding", "default_mesh", "gather",
+           "logical_to_spec", "make_mesh", "make_rules", "model_shards",
+           "place", "pmax", "psum", "to_named_sharding"]

@@ -9,6 +9,8 @@ loaded at import time: the first launch of a kernel builds its library.
 """
 from __future__ import annotations
 
+import contextlib
+
 import ctypes
 import hashlib
 import os
@@ -132,3 +134,18 @@ def stream_ptr(device) -> ctypes.c_void_p:
     index, as a tensor's is), read without building a ``torch.cuda.Stream``:
     every launch pays for this on the host."""
     return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(device.index))
+
+
+_CURRENT = contextlib.nullcontext()
+
+
+def on_device(device):
+    """A context in which ``device`` is the current CUDA device, the one
+    a kernel's launch code reads (``cudaGetDevice``: its shared-memory
+    opt-in, its SM count, the launch itself).  A tensor on another card
+    than the current one would otherwise launch there.  Free when
+    ``device`` is already current (one host call), as it is inside a
+    sharded program's stage."""
+    if torch._C._cuda_getDevice() == device.index:
+        return _CURRENT
+    return torch.cuda.device(device)

@@ -53,8 +53,9 @@ def masked_score(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
     out = torch.empty((Q, N), dtype=torch.float32, device=q.device)
     if Q == 0 or N == 0:
         return out
-    err = _lib()(q.data_ptr(), x.data_ptr(), mask.data_ptr(), Q, N, d,
-                 out.data_ptr(), _nvcc.stream_ptr(q.device))
+    with _nvcc.on_device(q.device):
+        err = _lib()(q.data_ptr(), x.data_ptr(), mask.data_ptr(), Q, N, d,
+                     out.data_ptr(), _nvcc.stream_ptr(q.device))
     _nvcc.check(err, what)
     return out
 

@@ -85,10 +85,11 @@ def centroid_topk(q: torch.Tensor, c: torch.Tensor, vis: torch.Tensor,
     part_s = torch.empty((Q, nchunks, k), dtype=torch.float32,
                          device=q.device)
     part_i = torch.empty((Q, nchunks, k), dtype=torch.int32, device=q.device)
-    err = _lib("centroid_topk_wide" if wide else "centroid_topk")(
-        q.data_ptr(), c.data_ptr(), vis.data_ptr(), Q, M, d, k, chunk,
-        nchunks, part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
-        out_i.data_ptr(), _nvcc.stream_ptr(q.device))
+    with _nvcc.on_device(q.device):
+        err = _lib("centroid_topk_wide" if wide else "centroid_topk")(
+            q.data_ptr(), c.data_ptr(), vis.data_ptr(), Q, M, d, k, chunk,
+            nchunks, part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
+            out_i.data_ptr(), _nvcc.stream_ptr(q.device))
     _nvcc.check(err, "centroid_topk")
     launches += 1
     return out_s, out_i

@@ -62,10 +62,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((B, Hq, Lq, D), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, Hq, Hkv, Lq, Lk, D, int(bool(causal)),
-                 0 if window is None else int(window), float(scale),
-                 _nvcc.stream_ptr(dev))
+    with _nvcc.on_device(dev):
+        err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     B, Hq, Hkv, Lq, Lk, D, int(bool(causal)),
+                     0 if window is None else int(window), float(scale),
+                     _nvcc.stream_ptr(dev))
     _nvcc.check(err, "flash_attention")
     launches += 1
     return out

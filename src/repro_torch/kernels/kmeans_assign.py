@@ -62,11 +62,12 @@ def kmeans_assign(points: torch.Tensor, centroids: torch.Tensor,
     best = torch.empty((B, N), dtype=torch.float32, device=dev)
     if N == 0:
         return assign, best
-    err = _lib()(points.data_ptr(), points.stride(0), points.stride(1), Bp,
-                 centroids.data_ptr(), B, N, K, d,
-                 None if mask is None else mask.data_ptr(),
-                 assign.data_ptr(), best.data_ptr(),
-                 _nvcc.stream_ptr(dev))
+    with _nvcc.on_device(dev):
+        err = _lib()(points.data_ptr(), points.stride(0),
+                     points.stride(1), Bp, centroids.data_ptr(), B, N, K, d,
+                     None if mask is None else mask.data_ptr(),
+                     assign.data_ptr(), best.data_ptr(),
+                     _nvcc.stream_ptr(dev))
     _nvcc.check(err, "kmeans_assign")
     launches += 1
     return assign, best

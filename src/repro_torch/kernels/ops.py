@@ -28,12 +28,20 @@ from . import ref
 from . import rerank as _rr
 
 
-def _on_card(t: torch.Tensor) -> bool:
-    if t.device.type == "cuda":
+def _on_card(*ts: Optional[torch.Tensor]) -> bool:
+    """True for tensors on one card, False for tensors on the CPU; raises
+    ``ValueError`` for tensors on different devices (a sharded stage
+    that mixes two shards' devices) or on another kind of device."""
+    dev = ts[0].device
+    for t in ts[1:]:
+        if t is not None and t.device != dev:
+            raise ValueError(f"kernel inputs on different devices: {dev} "
+                             f"and {t.device}")
+    if dev.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if dev.type == "cpu":
         return False
-    raise ValueError(f"no kernel or plain version for device {t.device}")
+    raise ValueError(f"no kernel or plain version for device {dev}")
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -53,7 +61,7 @@ def centroid_score(q: torch.Tensor, c: torch.Tensor,
     """(Q, d), (M, d)[, (M,) bool] -> (Q, M) scores; masked -> BIG."""
     if vis is None:
         vis = torch.ones((c.shape[0],), dtype=torch.bool, device=c.device)
-    if _on_card(q):
+    if _on_card(q, c, vis):
         return _cs.centroid_score(_f32(q), _f32(c), vis.contiguous())
     return ref.centroid_score(q, c, vis)
 
@@ -68,7 +76,7 @@ def centroid_topk(q: torch.Tensor, c: torch.Tensor,
         raise ValueError(f"centroid_topk: k={k} outside [1, M={M}]")
     if vis is None:
         vis = torch.ones((M,), dtype=torch.bool, device=c.device)
-    if _on_card(q):
+    if _on_card(q, c, vis):
         return _ct.centroid_topk(_f32(q), _f32(c), vis.contiguous(), k)
     return ref.centroid_topk(q, c, vis, k)
 
@@ -76,7 +84,7 @@ def centroid_topk(q: torch.Tensor, c: torch.Tensor,
 def posting_scan(q: torch.Tensor, tiles: torch.Tensor,
                  valid: torch.Tensor) -> torch.Tensor:
     """(Q, d), (G, C, d), (G, C) bool -> (Q, G*C) scores; invalid -> BIG."""
-    if _on_card(q):
+    if _on_card(q, tiles, valid):
         return _ps.posting_scan(_f32(q), _f32(tiles), valid.contiguous())
     return ref.posting_scan(q, tiles, valid)
 
@@ -89,7 +97,7 @@ def posting_scan_gather(q: torch.Tensor, vectors: torch.Tensor,
     (Q, P, C) scores of every slot of each probed tile; invalid slots and
     invisible postings -> BIG.  On the card the kernel applies both masks
     itself: no (M, C) mask is built per call."""
-    if _on_card(q):
+    if _on_card(q, vectors, slot_valid, vis, probe):
         return _ps.posting_scan_gather(_f32(q), _f32(vectors),
                                        slot_valid.contiguous(),
                                        vis.contiguous(), _i32(probe))
@@ -110,11 +118,12 @@ def posting_scan_topk(q: torch.Tensor, vectors: torch.Tensor,
     P = probe.shape[1]
     if not 0 < k <= P * C:
         raise ValueError(f"posting_scan_topk: k={k} outside [1, P*C]")
+    on_card = _on_card(q, vectors, slot_valid, vis, probe, qp_ok)
     valid = slot_valid & vis[:, None]
     if qp_ok is None:
         qp_ok = torch.ones((Q, P), dtype=torch.int32, device=q.device)
     qp_ok = qp_ok.to(torch.int32)
-    if _on_card(q):
+    if on_card:
         return _ps.posting_scan_topk(
             _f32(q), _f32(vectors), valid.contiguous(), qp_ok.contiguous(),
             probe.to(torch.int32).contiguous(), k)
@@ -131,7 +140,7 @@ def kmeans_assign(points: torch.Tensor, centroids: torch.Tensor,
     flat = points.dim() == 2
     if flat:
         points, centroids = points[None], centroids[None]
-    if _on_card(points):
+    if _on_card(points, centroids, mask):
         if points.dtype != torch.float32 or points.stride(-1) != 1:
             points = points.float().contiguous()
         a, b = _ka.kmeans_assign(points, _f32(centroids),
@@ -150,7 +159,7 @@ def pq_scan_gather(luts: torch.Tensor, codes: torch.Tensor,
     Returns (Q, P, C) ADC scores; invalid slots and invisible postings
     -> BIG.  On the card the kernel clamps the slot and applies the masks
     itself: no (M, C) mask is built per call."""
-    if _on_card(luts):
+    if _on_card(luts, codes, posting_slot, slot_valid, vis, probe):
         return _pq.pq_scan_gather(_f32(luts), codes.contiguous(),
                                   _i32(posting_slot), slot_valid.contiguous(),
                                   vis.contiguous(), _i32(probe))
@@ -175,7 +184,7 @@ def pq_scan_topk(luts: torch.Tensor, codes: torch.Tensor,
     P = probe.shape[1]
     if not 0 < k <= P * C:
         raise ValueError(f"pq_scan_topk: k={k} outside [1, P*C]")
-    if _on_card(luts):
+    if _on_card(luts, codes, posting_slot, slot_valid, vis, probe, qp_ok):
         return _pq.pq_scan_topk(
             _f32(luts), codes.contiguous(), _i32(posting_slot),
             slot_valid.contiguous(), vis.contiguous(),
@@ -198,7 +207,7 @@ def rerank_topk(q: torch.Tensor, vectors: torch.Tensor,
     R = cand.shape[1]
     if not 0 < k <= R:
         raise ValueError(f"rerank_topk: k={k} outside [1, R={R}]")
-    if _on_card(q):
+    if _on_card(q, vectors, tier_spilled, cand, adc):
         return _rr.rerank_topk(_f32(q), _f32(vectors),
                                tier_spilled.contiguous(), _i32(cand),
                                _f32(adc), k)
@@ -219,7 +228,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     if scale is None:
         scale = 1.0 / (D ** 0.5)
-    if _on_card(q):
+    if _on_card(q, k, v):
         return _fa.flash_attention(_f32(q), _f32(k), _f32(v), causal=causal,
                                    window=window, scale=scale)
     return ref.flash_attention(q, k, v, causal=causal, window=window,

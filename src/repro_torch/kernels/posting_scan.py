@@ -114,9 +114,10 @@ def posting_scan_gather(q: torch.Tensor, vectors: torch.Tensor,
         raise ValueError("posting_scan_gather: probes into an empty pool")
     fn, scratch_ints = _lib_gather()
     scratch = torch.empty(scratch_ints(Q * P), dtype=torch.int32, device=dev)
-    err = fn(q.data_ptr(), vectors.data_ptr(), slot_valid.data_ptr(),
-             vis.data_ptr(), probe.data_ptr(), Q, M, C, d, P,
-             scratch.data_ptr(), out.data_ptr(), _nvcc.stream_ptr(dev))
+    with _nvcc.on_device(dev):
+        err = fn(q.data_ptr(), vectors.data_ptr(), slot_valid.data_ptr(),
+                 vis.data_ptr(), probe.data_ptr(), Q, M, C, d, P,
+                 scratch.data_ptr(), out.data_ptr(), _nvcc.stream_ptr(dev))
     _nvcc.check(err, "posting_scan_gather")
     launches_gather += 1
     return out
@@ -173,19 +174,20 @@ def posting_scan_topk(q: torch.Tensor, vectors: torch.Tensor,
     args = [q.data_ptr(), vectors.data_ptr(), valid.data_ptr(),
             qp_ok.data_ptr(), probe.data_ptr(), Q, M, C, d, P, k]
     if k > WARP_K:
-        err = _lib_topk("posting_scan_topk_wide")(
-            *args, out_s.data_ptr(), out_i.data_ptr(), _nvcc.stream_ptr(dev))
+        launch = _lib_topk("posting_scan_topk_wide")
+        args += [out_s.data_ptr(), out_i.data_ptr()]
     else:
         group, S = split_probes(Q, P)
         part_s = part_i = None
         if S > 1:
             part_s = torch.empty((Q, S, k), dtype=torch.float32, device=dev)
             part_i = torch.empty((Q, S, k), dtype=torch.int32, device=dev)
-        err = _lib_topk("posting_scan_topk")(
-            *args, group, out_s.data_ptr(), out_i.data_ptr(),
-            None if part_s is None else part_s.data_ptr(),
-            None if part_i is None else part_i.data_ptr(),
-            _nvcc.stream_ptr(dev))
+        launch = _lib_topk("posting_scan_topk")
+        args += [group, out_s.data_ptr(), out_i.data_ptr(),
+                 None if part_s is None else part_s.data_ptr(),
+                 None if part_i is None else part_i.data_ptr()]
+    with _nvcc.on_device(dev):
+        err = launch(*args, _nvcc.stream_ptr(dev))
     _nvcc.check(err, "posting_scan_topk")
     launches_topk += 1
     return out_s, out_i

@@ -154,11 +154,13 @@ def pq_scan_topk(luts: torch.Tensor, codes: torch.Tensor,
     out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
     if Q == 0:
         return out_s, out_i
-    err = _lib()(luts.data_ptr(), codes.data_ptr(), slot.data_ptr(),
-                 slot_valid.data_ptr(), vis.data_ptr(),
-                 None if qp_ok is None else qp_ok.data_ptr(),
-                 probe.data_ptr(), Q, M, C, V, m, ksub, P, k, group,
-                 out_s.data_ptr(), out_i.data_ptr(), _nvcc.stream_ptr(dev))
+    with _nvcc.on_device(dev):
+        err = _lib()(luts.data_ptr(), codes.data_ptr(), slot.data_ptr(),
+                     slot_valid.data_ptr(), vis.data_ptr(),
+                     None if qp_ok is None else qp_ok.data_ptr(),
+                     probe.data_ptr(), Q, M, C, V, m, ksub, P, k, group,
+                     out_s.data_ptr(), out_i.data_ptr(),
+                     _nvcc.stream_ptr(dev))
     _nvcc.check(err, "pq_scan_topk")
     launches += 1
     return out_s, out_i
@@ -196,10 +198,12 @@ def pq_scan_gather(luts: torch.Tensor, codes: torch.Tensor,
         fn.restype = ctypes.c_int
         _gather_fn = fn
     group, _ = gather_split(Q, P)
-    err = _gather_fn(luts.data_ptr(), codes.data_ptr(), slot.data_ptr(),
-                     slot_valid.data_ptr(), vis.data_ptr(), probe.data_ptr(),
-                     Q, M, C, V, m, ksub, P, group, out.data_ptr(),
-                     _nvcc.stream_ptr(dev))
+    with _nvcc.on_device(dev):
+        err = _gather_fn(luts.data_ptr(), codes.data_ptr(),
+                         slot.data_ptr(), slot_valid.data_ptr(),
+                         vis.data_ptr(), probe.data_ptr(), Q, M, C, V, m,
+                         ksub, P, group, out.data_ptr(),
+                         _nvcc.stream_ptr(dev))
     _nvcc.check(err, "pq_scan_gather")
     launches_gather += 1
     return out

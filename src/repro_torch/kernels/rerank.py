@@ -63,9 +63,10 @@ def rerank_topk(q: torch.Tensor, vectors: torch.Tensor,
     out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
     if Q == 0:
         return out_s, out_i
-    err = _lib()(q.data_ptr(), vectors.data_ptr(), spilled.data_ptr(),
-                 cand.data_ptr(), adc.data_ptr(), Q, M * C, C, d, R, k,
-                 out_s.data_ptr(), out_i.data_ptr(), _nvcc.stream_ptr(dev))
+    with _nvcc.on_device(dev):
+        err = _lib()(q.data_ptr(), vectors.data_ptr(), spilled.data_ptr(),
+                     cand.data_ptr(), adc.data_ptr(), Q, M * C, C, d, R, k,
+                     out_s.data_ptr(), out_i.data_ptr(), _nvcc.stream_ptr(dev))
     _nvcc.check(err, "rerank_topk")
     launches += 1
     return out_s, out_i

@@ -448,9 +448,9 @@ def test_mesh_and_collectives():
 
 
 def test_replica_check_and_local_views():
-    """Shard-local states are views of the global rows; a stage that
-    replaces a sharded field is copied back; a replica that drifts is
-    caught by ``check_replicas``."""
+    """Shard-local states are the shard's own tensors, equal to its rows
+    of the global view; a stage that replaces a sharded field is taken
+    back; a replica that drifts is caught by ``check_replicas``."""
     from conftest import make_clustered
     cfg = UBISConfig(dim=8, max_postings=64, capacity=32, l_min=4, l_max=24,
                      max_ids=1 << 10)
@@ -460,7 +460,10 @@ def test_replica_check_and_local_views():
     drv.check_replicas()
     heat = sh.state.heat.clone()
     loc = sh.local(2)
-    assert loc.vectors.data_ptr() == sh.state.vectors[32:].data_ptr()
+    own = {sh.shards[s].vectors.untyped_storage().data_ptr()
+           for s in (1, 2, 3)}
+    assert len(own) == 3                    # no shard shares another's
+    assert torch.equal(loc.vectors, sh.state.vectors[32:48])
     loc.heat = loc.heat + 5                 # replaced, not written
     sh.store(2, loc)
     assert (sh.state.heat[32:48] == heat[32:48] + 5).all()
