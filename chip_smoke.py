@@ -176,6 +176,15 @@ Phases, in order (any failure exits non-zero before the last line):
    stream's first 4 batches with a codebook re-train every 4 ticks
    (its five kernels held on a later card), and each plane's unfused
    gather launched on the last shard's card against its plain version.
+   Where the process sees four cards, each plane also runs on the data
+   x model mesh (2, 2) over ``cuda:0-3`` against (1, 2) on the first
+   card, bit for bit, every kernel held on a row-1 card's inputs.
+   Phase 3l (after 3h, on one card): the data x model mesh (2, 2), all
+   four cells on the card, against (1, 2) there, over the same Zipf
+   stream and its quant leg: bit for bit, ``check_replicas`` (every
+   row's cells equal row 0's) after every batch, 100 storages audited,
+   every kernel of the (2, 2) path launched and held against its plain
+   version; each layout's seconds and 256-query search ms.
    Phase 3j, the backbone's decode path: ``get_model("tinyllama-1.1b")``
    at full width and depth from ``--seed`` prefills 16 prompts of 512
    tokens made from the seed (22 ``flash_attention`` launches, the first
@@ -2244,16 +2253,17 @@ def sharded_path(dev, ops, qpath, seed: int, log=say):
 
 
 def placement_line(sh, log=say) -> None:
-    """Audit the shards' placement and print what was audited."""
+    """Audit the cells' placement and print what was audited."""
     from repro_torch.core.sharded import FIELDS
     audit_placement(sh)
-    tensors = [getattr(st, f) for st in sh.shards for f in FIELDS]
+    tensors = [getattr(st, f) for row in sh.rows for st in row.shards
+               for f in FIELDS]
     stores = {(t.device, t.untyped_storage().data_ptr()) for t in tensors
               if t.numel()}
-    log(f"  S = {sh.n_shards} placement audit: {len(tensors)} tensors, "
-        f"each on its shard's device "
+    log(f"  {sh.n_rows} x {sh.n_shards} placement audit: {len(tensors)} "
+        f"tensors, each on its cell's device "
         f"({', '.join(str(d) for d in sh.devices)}), {len(stores)} "
-        "storages, none shared by two shards")
+        "storages, none shared by two cells")
 
 
 def skew_runs(dev, ops, seed: int, log=say) -> dict:
@@ -2362,14 +2372,14 @@ def gather_witness(drv, queries, quant: bool, log=say) -> None:
     from repro_torch.core import version_manager as vm
     from repro_torch.kernels import ops, ref
     from repro_torch.quant import pq
-    sh = drv.sharded
-    s = sh.n_shards - 1
-    st, dev = sh.local(s), sh.devices[s]
-    with sh.on(s):
+    row = drv.sharded.row(0)
+    s = row.n_shards - 1
+    st, dev = row.local(s), row.devices[s]
+    with row.on(s):
         q = torch.as_tensor(queries, device=dev)
         vis = vm.visible(st.rec_meta, st.allocated, st.global_version)
         _, pr = ref.stable_topk(ref.centroid_score(q, st.centroids, vis),
-                                min(drv.cfg.nprobe, sh.pool))
+                                min(drv.cfg.nprobe, row.pool))
         valid = st.slot_valid & vis[:, None]
         if quant:
             luts = pq.lookup_tables(st.pq_codebooks, q)
@@ -2394,31 +2404,63 @@ def gather_witness(drv, queries, quant: bool, log=say) -> None:
         f"{', exact' if quant else ''})")
 
 
-def skew_layouts(ops, ref, plane: str, cfg, batches, queries, S: int,
-                 seed: int, log=say, **kw) -> dict:
-    """One plane of phase 3k: the stream on S shards all on the first
-    card, then one a card; the two runs' search and exact ids and
-    scores, stats, occupancy and snapshots equal bit for bit, and every
-    kernel of ``SHARD_KERNELS[plane]`` launched on the multi-card run and
-    held against its plain version on the inputs of a card past the
-    first.  Returns the multi-card run's launches."""
+#: ``exact``'s kernel: ``exact`` runs on row 0 alone, so on a grid this
+#: kernel is held on the last row's card apart from the path
+#: (:func:`exact_witness`)
+EXACT_KERNELS = ("posting_scan",)
+
+
+def exact_witness(drv, queries, log=say) -> None:
+    """``exact``'s kernel launched on the last row's last shard, on its
+    card, and held against its plain version on the same inputs: a
+    grid's ``exact`` runs on row 0, so the path never launches it
+    there.  Made after the path's launches were read, so it does not
+    count."""
+    from repro_torch.core import version_manager as vm
+    from repro_torch.kernels import ops, ref
+    row = drv.sharded.row(drv.sharded.n_rows - 1)
+    s = row.n_shards - 1
+    st, dev = row.local(s), row.devices[s]
+    with row.on(s):
+        q = torch.as_tensor(queries, device=dev)
+        vis = vm.visible(st.rec_meta, st.allocated, st.global_version)
+        valid = st.slot_valid & (vis & ~st.tier_spilled)[:, None]
+        got = ops.posting_scan(q, st.vectors, valid)
+        err = require_close(f"posting_scan on {dev}", got,
+                            ref.posting_scan(q, st.vectors, valid))
+        torch.cuda.synchronize(dev)
+    log(f"  posting_scan on row {drv.sharded.n_rows - 1}'s shard {s} on "
+        f"{dev} {tuple(got.shape)}: held against its plain version (max "
+        f"err {err:.3g})")
+
+
+def skew_layouts(ops, ref, phase: str, plane: str, cfg, batches, queries,
+                 meshes: dict, seed: int, log=say, held_on=None,
+                 witness: bool = False, **kw) -> dict:
+    """One plane of a layout comparison (phases 3k and 3l): the stream
+    on each mesh of ``meshes`` (label -> mesh, two of them: the layout
+    it is held to, then the layout under test), every batch inserted,
+    flushed and followed by the rows' and replicas' check; the two runs'
+    search and exact ids and scores, stats, occupancy and every snapshot
+    field equal bit for bit.  The run under test is the path: its
+    launches are counted from zero, every kernel of
+    ``SHARD_KERNELS[plane]`` must launch, and each is held against its
+    plain version on its inputs, at least once on a device of
+    ``held_on`` (device names) where given.  ``witness``: each plane's
+    gather on the last shard's card too.  Returns the path's launches."""
     from repro_torch.api import make_index
     from repro_torch.core import metrics
-    from repro_torch.distributed import make_mesh
+    from repro_torch.core.sharded import FIELDS
     cards = torch.cuda.device_count()
     per = len(batches[0])
     names = SHARD_KERNELS[plane]
-    meshes = {"one card": make_mesh((1, S), ("data", "model"),
-                                    devices=[card(0)] * S),
-              "one shard a card": make_mesh((1, S), ("data", "model"),
-                                            devices=[card(i)
-                                                     for i in range(S)])}
     runs, launched = {}, {}
+    (base, _), (test, _) = list(meshes.items())
     for label, mesh in meshes.items():
         t0 = time.perf_counter()
         ops.reset_launch_counts()
-        multi = label != "one card"
-        held = (held_on_path(ops, ref, names, log) if multi
+        path = label == test
+        held = (held_on_path(ops, ref, names, log) if path
                 else nullcontext())
         with held as seen:
             drv = make_index("ubis-sharded", cfg, batches[0], mesh=mesh,
@@ -2429,21 +2471,34 @@ def skew_layouts(ops, ref, plane: str, cfg, batches, queries, S: int,
             for bi, b in enumerate(batches):
                 drv.insert(b, np.arange(bi * per, (bi + 1) * per))
                 ticks += drv.flush(max_ticks=SKEW["flush"])
+                try:
+                    drv.check_replicas()
+                except AssertionError as e:
+                    fail(f"{phase} {plane} {label}, batch {bi}: {e}")
             found = drv.search(queries, 10)
+            # the first search at a shape holds its kernels: time another
+            warm = drv.search(queries, 10)
             truth = drv.exact(queries, 10)
         sync_all()
-        if multi:
+        if not np.array_equal(warm.ids, found.ids):
+            fail(f"{phase} {plane} {label}: a second search differs")
+        if path:
             launched = ops.launch_counts()
-            log(f"  3k {plane} launches on the multi-card path: "
+            log(f"  {phase} {plane} launches on the {label} path: "
                 f"{json.dumps(launched)}")
+            row0 = EXACT_KERNELS if drv.sharded.n_rows > 1 else ()
             for name in names:
                 if launched[name] <= 0:
                     fail(f"kernel {name} was never launched on the "
-                         f"multi-card sharded {plane} path")
-                if not any(key[0] != str(card(0)) for key, _ in seen[name]):
+                         f"{label} sharded {plane} path")
+                if held_on and name not in row0 and not any(
+                        key[0] in held_on for key, _ in seen[name]):
                     fail(f"kernel {name} was never held on the inputs of "
-                         "a card past the first")
-            gather_witness(drv, queries[:32], plane == "quant", log)
+                         f"{' or '.join(sorted(held_on))}")
+            if held_on and row0 and set(row0) & set(names):
+                exact_witness(drv, queries[:32], log)
+            if witness:
+                gather_witness(drv, queries[:32], plane == "quant", log)
         drv.check_replicas()
         placement_line(drv.sharded, log)
         snap = drv.snapshot()
@@ -2452,61 +2507,44 @@ def skew_layouts(ops, ref, plane: str, cfg, batches, queries, S: int,
             exact_scores=truth.scores, occ=drv.shard_occupancy(),
             stats={k: float(drv.stats[k]) for k in (
                 "inserted", "rejected", "migrated", "bg_ops", "bg_gc",
-                "host_cached", "drained")},
-            snap={f: getattr(snap, f).cpu() for f in (
-                "vectors", "ids", "slot_valid", "centroids", "rec_meta",
-                "allocated", "id_loc", "cache_valid", "codes",
-                "pq_codebooks")},
+                "host_cached", "drained", "pq_retrains")},
+            snap={f: getattr(snap, f).cpu() for f in FIELDS},
             recall=metrics.recall_at_k(found.ids, truth.ids),
             seconds=time.perf_counter() - t0, ticks=ticks,
-            search_s=float(found.seconds))
+            search_s=float(warm.seconds))
         r = runs[label]
-        log(f"  3k {plane} {label} ("
+        log(f"  {phase} {plane} {label} ("
             f"{', '.join(str(d) for d in mesh.devices)}): "
             f"{r['seconds']:.1f} s, {ticks} ticks, recall@10 "
             f"{r['recall']:.4f}, migrated {r['stats']['migrated']:.0f}, "
             f"occupancy {r['occ'].tolist()}, search of {len(queries)} "
-            f"{r['search_s'] * 1e3:.3f} ms")
+            f"{r['search_s'] * 1e3:.3f} ms (warm)")
         del drv, snap
         for i in range(cards):
             with torch.cuda.device(i):
                 torch.cuda.empty_cache()
-    a, b = runs["one card"], runs["one shard a card"]
+    a, b = runs[base], runs[test]
     for key in ("ids", "scores", "exact", "exact_scores", "occ"):
         if not np.array_equal(a[key], b[key]):
-            fail(f"3k {plane}: {key} differ between one card and one "
-                 "shard a card")
+            fail(f"{phase} {plane}: {key} differ between {base} and {test}")
     if a["stats"] != b["stats"]:
-        fail(f"3k {plane}: stats differ: {a['stats']} vs {b['stats']}")
+        fail(f"{phase} {plane}: stats differ: {a['stats']} vs "
+             f"{b['stats']}")
     for f in a["snap"]:
         if not torch.equal(a["snap"][f], b["snap"][f]):
-            fail(f"3k {plane}: snapshot field {f} differs between the "
-                 "layouts")
-    log(f"  3k {plane}: one shard a card = all {S} shards on one card, bit "
-        "for bit: search and exact ids and scores, stats, occupancy, "
-        f"snapshot ({len(a['snap'])} fields)")
+            fail(f"{phase} {plane}: snapshot field {f} differs between "
+                 f"{base} and {test}")
+    log(f"  {phase} {plane}: {test} = {base}, bit for bit: search and "
+        "exact ids and scores, stats, occupancy, snapshot "
+        f"({len(a['snap'])} fields); rows identical after every batch")
     return launched
 
 
-def multi_card_skew(ops, ref, seed: int, log=say) -> dict:
-    """Phase 3k, where the process sees two or more cards: 3h-3's Zipf
-    stream (``SKEW``: 200,000 x 128-d, 10 batches each flushed,
-    rebalance on) on S = min(``SHARDS``, cards) shards, then the quant
-    plane (PQ16, ``quant_config``) on its first ``SKEW_QUANT`` batches
-    with a codebook re-train, each first all on the first card, then one
-    a card (:func:`skew_layouts`), and each plane's unfused gather on a
-    later card (:func:`gather_witness`).  Returns the launches of the
-    multi-card runs; on a one-card machine prints why it did not run
-    and returns {}."""
-    import dataclasses
+def skew_stream(seed: int):
+    """3h-3's Zipf stream for phases 3k and 3l (``SKEW``: 16 clusters,
+    Zipf 1.5, 200,000 x 128-d in 10 batches) at ``max_postings`` 65,504:
+    (the float config, the batches, 256 queries)."""
     from repro_torch.core.types import UBISConfig
-    cards = torch.cuda.device_count()
-    if cards < 2:
-        log(f"  3k not run: the process sees {cards} card "
-            f"({torch.cuda.get_device_name(0)}); one shard a card needs "
-            "two or more")
-        return {}
-    S = min(SHARDS, cards)
     cfg = UBISConfig(dim=128, max_postings=65504, capacity=96, l_min=10,
                      l_max=80, nprobe=32, cache_capacity=4096,
                      max_ids=1 << 21)
@@ -2519,15 +2557,82 @@ def multi_card_skew(ops, ref, seed: int, log=say) -> dict:
     batches = [(cents[rng.choice(K, size=per, p=w / w.sum())]
                 + rng.standard_normal((per, 128))).astype(np.float32)
                for _ in range(SKEW["batches"])]
-    launched = skew_layouts(ops, ref, "float", cfg, batches, queries, S,
-                            seed, log)
+    return cfg, batches, queries
+
+
+def both_planes(ops, ref, phase: str, seed: int, pairs, log=say) -> dict:
+    """The float stream, then its quant leg (PQ16, ``quant_config``, the
+    first ``SKEW_QUANT`` batches, a codebook re-train every
+    ``SKEW_QUANT["retrain"]`` ticks), through :func:`skew_layouts` for
+    each (meshes, held_on, witness) of ``pairs``.  Returns the paths'
+    launches."""
+    import dataclasses
+    cfg, batches, queries = skew_stream(seed)
     qcfg = dataclasses.replace(cfg, **quant_config(128))
-    for k, v in skew_layouts(ops, ref, "quant", qcfg,
-                             batches[:SKEW_QUANT["batches"]], queries, S,
-                             seed, log,
-                             pq_retrain_every=SKEW_QUANT["retrain"]).items():
-        launched[k] = launched.get(k, 0) + v
+    launched = {}
+    for plane, c, bs, kw in (
+            ("float", cfg, batches, {}),
+            ("quant", qcfg, batches[:SKEW_QUANT["batches"]],
+             dict(pq_retrain_every=SKEW_QUANT["retrain"]))):
+        for meshes, held_on, witness in pairs:
+            for k, v in skew_layouts(ops, ref, phase, plane, c, bs, queries,
+                                     meshes, seed, log, held_on=held_on,
+                                     witness=witness, **kw).items():
+                launched[k] = launched.get(k, 0) + v
     return launched
+
+
+def multi_card_skew(ops, ref, seed: int, log=say) -> dict:
+    """Phase 3k, where the process sees two or more cards: 3h-3's Zipf
+    stream (:func:`skew_stream`, rebalance on) on S = min(``SHARDS``,
+    cards) shards, then its quant leg, each first all on the first card,
+    then one a card, every kernel held on a card past the first and each
+    plane's unfused gather on the last card (:func:`gather_witness`);
+    where the process sees four cards, also the data x model mesh (2, 2)
+    over ``cuda:0-3`` against (1, 2) on the first card, every kernel
+    held on a row-1 card.  Returns the launches of the multi-card runs;
+    on a one-card machine prints why it did not run and returns {}."""
+    from repro_torch.distributed import make_mesh
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"  3k not run: the process sees {cards} card "
+            f"({torch.cuda.get_device_name(0)}); one shard a card needs "
+            "two or more")
+        return {}
+    S = min(SHARDS, cards)
+    names = ("data", "model")
+    pairs = [({"one card": make_mesh((1, S), names, devices=[card(0)] * S),
+               "one shard a card": make_mesh(
+                   (1, S), names, devices=[card(i) for i in range(S)])},
+              {str(card(i)) for i in range(1, S)}, True)]
+    if cards >= 4:
+        grid = make_mesh((2, 2), names, devices=[card(i) for i in range(4)])
+        pairs.append(({"(1, 2) on one card": make_mesh(
+                           (1, 2), names, devices=[card(0)] * 2),
+                       "(2, 2) one cell a card": grid},
+                      {str(d) for d in grid.row_devices(1)}, False))
+    else:
+        log(f"  3k (2, 2) leg not run: the process sees {cards} cards, "
+            "the grid needs four")
+    return both_planes(ops, ref, "3k", seed, pairs, log)
+
+
+# ---------------------------------------------------------------------------
+# phase 3l: the data x model mesh on one card
+# ---------------------------------------------------------------------------
+
+def rows_on_one_card(ops, ref, seed: int, log=say) -> dict:
+    """Phase 3l: the data x model mesh (2, 2), all four cells on the
+    first card, against (1, 2) there: 3h-3's Zipf stream and its quant
+    leg (:func:`both_planes`), bit for bit, the rows identical after
+    every batch, 100 storages audited.  Returns the (2, 2) runs'
+    launches."""
+    from repro_torch.distributed import make_mesh
+    names = ("data", "model")
+    pairs = [({"(1, 2)": make_mesh((1, 2), names, devices=[card(0)] * 2),
+               "(2, 2)": make_mesh((2, 2), names,
+                                   devices=[card(0)] * 4)}, None, False)]
+    return both_planes(ops, ref, "3l", seed, pairs, log)
 
 
 # ---------------------------------------------------------------------------
@@ -4249,6 +4354,13 @@ def main() -> None:
     counts = {k: counts.get(k, 0) + v for k, v in launched.items()}
     say(f"  phase 3h: {time.perf_counter() - t:.1f} s"
         + parent_phase_text(parent_phase, "3h"))
+
+    say("phase 3l: the data x model mesh (2, 2) on the card, every cell "
+        "in storage of its own, against (1, 2)")
+    t = time.perf_counter()
+    launched = rows_on_one_card(ops, ref, args.seed)
+    counts = {k: counts.get(k, 0) + v for k, v in launched.items()}
+    say(f"  phase 3l: {time.perf_counter() - t:.1f} s")
 
     mode = compute_mode()
     say(f"phase 3i: the cluster plane, make_index('ubis-cluster'); compute "

@@ -12,7 +12,8 @@ shards (``distributed/sharding.py``):
   * **delete** — ``make_sharded_delete`` rounds (owner-shard tombstones,
     replicated id-map/cache updates);
   * **search** — ``make_sharded_search`` per (k, nprobe), queries padded
-    to the data-axis multiple;
+    to the data rows' multiple and split over the rows, one contiguous
+    block a row;
   * **tick**  — ONE ``make_sharded_background`` call (per-shard select →
     mark → execute → epoch GC, reporting per-shard pressure rows), then
     the **cross-shard rebalance** stage, then the host cache drain, then
@@ -40,15 +41,20 @@ EMPTY; ``snapshot()`` copies the global view and passes it through
 ``update.ensure_free_stack``, which rebuilds the canonical stack and
 checks it.
 
-**Devices.**  Shard s lives on ``mesh.devices[s]``: ``default_mesh``
-puts one shard on each card of the process, ``make_mesh(...,
-devices=[...])`` names them, ``make_mesh(..., device=d)`` puts every
-shard on ``d``.  The driver's own work (the merges, the host reads, the
-cold tier's planning) runs on the controller, shard 0's device.  Code
-that works on the whole index reads it through the global view
-(``ShardedState.gather`` / ``scatter``, or the field-by-field
-``GlobalView`` that ``state`` returns); the replicated fields it needs
-(the id map, the cache, the version) are read from shard 0's replica.
+**Devices.**  The mesh is a grid of D data rows by S ``model`` shards,
+and cell (r, s) lives on ``mesh.row_devices(r)[s]``: ``default_mesh``
+puts one cell on each card of the process (the JAX rule's (n // m, m)),
+``make_mesh(..., devices=[...])`` names them row-major, ``make_mesh(...,
+device=d)`` puts every cell on ``d``.  Every row holds a whole replica
+of the index: an update program runs on every row, in row order, and
+the driver takes row 0's outputs; a search splits its batch over the
+rows; ``exact`` runs on row 0.  The driver's own work (the final merges,
+the host reads, the cold tier's planning) runs on the controller, cell
+(0, 0)'s device.  Code that works on the whole index reads row 0
+through the global view (``ShardedState.gather`` / ``scatter``, or the
+field-by-field ``GlobalView`` that ``state`` returns) and writes every
+row through it; the replicated fields it needs (the id map, the cache,
+the version) are read from row 0's shard 0's replica.
 
 Like ``UBISDriver`` it runs on the card unless the caller passes
 ``device="cpu"`` (or a mesh on the CPU), and takes its random draws as
@@ -84,8 +90,8 @@ class ShardedUBISDriver:
     """Streaming driver over a sharded index (a ``StreamingIndex``).
 
     ``mesh``: a ``distributed.sharding.Mesh`` (default
-    ``default_mesh(cfg, device)``: one shard a card); its controller
-    (shard 0's device) is the driver's ``device``.  The other
+    ``default_mesh(cfg, device)``: one cell a card); its controller
+    (cell (0, 0)'s device) is the driver's ``device``.  The other
     knobs are the JAX package's, and ``device``, ``kmeans_init``,
     ``pq_init`` and ``pq_keys`` are ``UBISDriver``'s."""
 
@@ -184,10 +190,8 @@ class ShardedUBISDriver:
         self._shard_cache_scan = shard_cache_scan
         self._search_fns = {}
         self._exact_fns = {}
-        # queries shard over the data axes: batches pad to this multiple
-        self._q_mult = 1
-        for a in ("pod", "data"):
-            self._q_mult *= self.mesh.shape.get(a, 1)
+        # queries split over the data rows: batches pad to this multiple
+        self._q_mult = self.mesh.n_rows
 
     # ---- the global view ----------------------------------------------
 
@@ -204,12 +208,13 @@ class ShardedUBISDriver:
 
     @property
     def sharded(self) -> ShardedState:
-        """The index as S shards, shard s on ``mesh.devices[s]``."""
+        """The index as D rows of S shards (``ShardedState.rows``)."""
         return self._sh
 
     def check_replicas(self) -> None:
         """Raise ``AssertionError`` unless every shard's replicas equal
-        shard 0's (``core.sharded.check_replicas``)."""
+        shard 0's and every row equals row 0 (``core.sharded.
+        check_replicas``)."""
         check_replicas(self._sh)
 
     def _dev(self, x: np.ndarray) -> torch.Tensor:
@@ -710,9 +715,10 @@ class ShardedUBISDriver:
 
     def exact(self, queries, k: int) -> SearchResult:
         """Exact top-k over live contents (recall oracle): the sharded
-        brute force (``make_sharded_exact``), in query chunks that keep
-        each shard's score block near 1 GiB.  With the cold tier the
-        host-pool scan of the spilled postings is merged on top."""
+        brute force (``make_sharded_exact``, on row 0), in query chunks
+        that keep each shard's score block near 1 GiB.  With the cold
+        tier the host-pool scan of the spilled postings is merged on
+        top."""
         fn = self._exact_fns.get(k)
         if fn is None:
             fn = self._exact_fns[k] = make_sharded_exact(self.cfg, self.mesh,

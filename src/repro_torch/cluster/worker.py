@@ -63,15 +63,18 @@ def logical_mesh(cfg, devices: int, device, shape=None):
     (data, model), or without it the JAX rule over the worker's
     ``devices`` (its ``--devices`` count): ``model_shards(max_postings,
     devices)`` shards on the ``model`` axis.  The shard count never
-    depends on the host's cards; only where the shards live does:
+    depends on the host's cards; only where the D x S cells live does:
 
       * ``device`` is ``"cuda"`` with no index and the process sees at
-        least S > 1 cards: shard j on card j, the worker's own cards;
+        least D·S > 1 cards: cell i (row-major) on card i, the worker's
+        own cards;
       * otherwise (a named card such as ``"cuda:1"``, fewer cards than
-        shards, one card, the CPU): all S shards on ``device``, as
-        workers that share one card run.
+        cells, one card, the CPU): every cell on ``device``, as workers
+        that share one card run.
 
     Either layout gives the same answers bit for bit."""
+    import math
+
     import torch
 
     from ..core.driver import resolve_device
@@ -80,11 +83,11 @@ def logical_mesh(cfg, devices: int, device, shape=None):
     if shape is None:
         shape = (1, model_shards(cfg.max_postings, devices))
     shape = tuple(int(n) for n in shape)
-    S = shape[-1]
+    n = math.prod(shape)
     if (dev.type == "cuda" and dev.index is None
-            and 1 < S <= torch.cuda.device_count()):
+            and 1 < n <= torch.cuda.device_count()):
         return make_mesh(shape, ("data", "model"),
-                         devices=[torch.device("cuda", j) for j in range(S)])
+                         devices=[torch.device("cuda", j) for j in range(n)])
     return make_mesh(shape, ("data", "model"), device=dev)
 
 
@@ -155,8 +158,9 @@ class WorkerRuntime:
         return {"modules": sorted({m.split(".")[0] for m in sys.modules})}
 
     def _cmd_placement(self, p: dict) -> dict:
-        """Each shard's device, after ``core.sharded.audit_placement``
-        (which raises if a shard's tensor is elsewhere or shared)."""
+        """Each cell's device, row by row, after ``core.sharded.
+        audit_placement`` (which raises if a cell's tensor is elsewhere or
+        shared)."""
         from ..core.sharded import audit_placement
         audit_placement(self.drv._sh)
         return {"devices": [str(d) for d in self.drv._sh.devices]}

@@ -1,9 +1,11 @@
-"""Distributed UBIS: the index over the ``model`` shards of a mesh.
+"""Distributed UBIS: the index over the cells of a data x model mesh.
 
 The JAX package shards the posting pool over the ``model`` axis of a
-device mesh and runs each program under ``shard_map``.  Here shard s
-lives on ``mesh.devices[s]`` (``distributed/sharding.py``; on one card
-every shard is on that card):
+device mesh, keeps every field whole over ``data`` (so each data row
+holds a whole replica of the shards), and runs each program under
+``shard_map``.  Here cell (r, s) of the mesh's grid lives on row r's
+s-th device (``distributed/sharding.py``; on one card every cell is on
+that card):
 
   * shard s owns its ``max_postings / S`` rows of every ``"model"``
     field of :func:`index_specs` and its own replica of every replicated
@@ -11,23 +13,31 @@ every shard is on that card):
     version, the codebooks), each a tensor of its own on its device,
     laid out from ``index_specs()`` by ``to_named_sharding`` and
     ``place`` (the reference's ``device_put`` by ``NamedSharding``,
-    ``repro/api/sharded_driver.py:134-141``);
-  * a program is the reference's per-shard stages, stage s under shard
-    s's device, separated by the collectives the reference calls, in
-    the same order.  Each collective copies the shards' values onto the
-    device that consumes them next (the search's final merge and the
-    insert's routing run on the controller, shard 0's device) and
-    combines them in shard order; each program copies its queries or
-    jobs to each shard once.  Each stage reads its own replica, so a
-    shard never sees another shard's write of a replicated field within
-    a program, as on a pod.  The replicas are identical after every
-    program (:func:`check_replicas`);
+    ``repro/api/sharded_driver.py:134-141``); every data row holds the
+    S shards again (:class:`ShardRow`);
+  * a program is the reference's per-shard stages over one row, stage s
+    under shard s's device, separated by the collectives the reference
+    calls, in the same order.  Each collective copies the shards' values
+    onto the device that consumes them next (the search's final merge
+    and the insert's routing run on the row's controller, its shard 0's
+    device) and combines them in shard order; each program copies its
+    queries or jobs to each shard once.  Each stage reads its own
+    replica, so a shard never sees another shard's write of a replicated
+    field within a program, as on a pod.  The replicas are identical
+    after every program (:func:`check_replicas`);
+  * over the rows, as under ``shard_map`` with the queries on the data
+    axes and the jobs replicated: a search splits its batch into one
+    contiguous block a row and joins the rows' answers in row order; an
+    update program runs on every row, in row order, and returns row 0's
+    outputs, so the rows stay identical bit for bit; ``exact`` runs on
+    row 0;
   * code that works on the whole index (the codebook re-train, the
     cold tier, ``snapshot``) reads it through a global view:
     :meth:`ShardedState.gather` (an ordinary ``IndexState`` on the
-    controller, a copy) and :meth:`ShardedState.scatter` back, or
-    :class:`GlobalView`, which gathers one field at a time and writes
-    rows on the shards that own them.
+    controller, a copy of row 0) and :meth:`ShardedState.scatter` back
+    to every row, or :class:`GlobalView`, which gathers one field at a
+    time from row 0 and writes rows on the shards that own them in
+    every row.
 
 One shard owns each posting, so structural updates (split / merge /
 compact / GC) stay shard-local; only search and insert communicate:
@@ -92,35 +102,28 @@ def _shard_context(device: torch.device):
     return contextlib.nullcontext()
 
 
-class ShardedState:
-    """An ``IndexState`` held as S shards, shard s on ``mesh.devices[s]``.
+class ShardRow:
+    """One data row of a :class:`ShardedState`: S shards, shard s on the
+    row's s-th device, the interface a program reads.
 
     ``shards[s]`` is shard s's state: its ``max_postings / S`` rows of
     each sharded field and its replica of each replicated field, every
     one a tensor of its own on its device.  A program reads shard s with
-    :meth:`local` and gives it back with :meth:`store`.  ``state`` is the
-    :class:`GlobalView`; :meth:`gather` / :meth:`scatter` move the whole
-    index to the controller and back; :meth:`replicate` broadcasts shard
-    0's replicated fields to the other shards (the ``device_put`` of the
-    reference)."""
+    :meth:`local` and gives it back with :meth:`store`; ``mesh`` is the
+    row as a mesh of its own (``mesh.device``: the row's controller)."""
 
-    def __init__(self, state, mesh: Mesh):
-        S = mesh.shape["model"]
-        M = state.allocated.shape[0]
-        if M % S:
-            raise ValueError(f"max_postings {M} must divide the model axis "
-                             f"({S} shards)")
+    def __init__(self, mesh: Mesh, shards: list, pool: int):
         self.mesh = mesh
         self.devices = mesh.devices
-        self.n_shards = S
-        self.pool = M // S
-        self.placements = index_placements(mesh)
-        parts = {f: place(getattr(state, f), self.placements[f])
-                 for f in FIELDS}
-        self.shards = [IndexState(**{f: parts[f][s] for f in FIELDS})
-                       for s in range(S)]
+        self.n_shards = len(shards)
+        self.pool = pool
+        self.shards = shards
 
-    # ---- one shard ------------------------------------------------------
+    @property
+    def rows(self) -> list:
+        """A row is a mesh of one row: the programs take it as they take
+        a :class:`ShardedState`."""
+        return [self]
 
     def on(self, s: int):
         """The context of shard ``s``'s stage: its device is current."""
@@ -149,16 +152,81 @@ class ShardedState:
         self.shards[s] = IndexState(**{f: getattr(local, f)
                                        for f in FIELDS})
 
+
+class ShardedState:
+    """An ``IndexState`` held as D data rows of S shards, cell (r, s) on
+    ``mesh.row_devices(r)[s]`` (:class:`ShardRow`: ``rows[r]``, or
+    :meth:`row`).
+
+    The rows are replicas of one another: a program keeps them
+    identical, and every write from outside a program reaches every row
+    (:meth:`store`, :meth:`scatter`, :meth:`replicate`,
+    ``GlobalView.set_rows`` and field assignment).  Every read is row
+    0's: ``shards``, :meth:`local`, :meth:`field`, :meth:`gather` and
+    the :class:`GlobalView` (``state``).  :meth:`replicate` broadcasts
+    row 0's shard 0's replicated fields to every other cell (the
+    ``device_put`` of the reference)."""
+
+    def __init__(self, state, mesh: Mesh):
+        S = mesh.n_shards
+        M = state.allocated.shape[0]
+        if M % S:
+            raise ValueError(f"max_postings {M} must divide the model axis "
+                             f"({S} shards)")
+        self.mesh = mesh
+        self.n_shards = S
+        self.n_rows = mesh.n_rows
+        self.pool = M // S
+        self.placements = index_placements(mesh)
+        self._row_placements = index_placements(mesh.row(0))
+        parts = {f: place(getattr(state, f), self.placements[f])
+                 for f in FIELDS}
+        self.rows = [
+            ShardRow(mesh.row(r), [IndexState(**{f: parts[f][i]
+                                                 for f in FIELDS})
+                                   for i in mesh.grid[r]], self.pool)
+            for r in range(self.n_rows)]
+
+    def row(self, r: int) -> ShardRow:
+        """Data row ``r``: the S shards a program runs on."""
+        return self.rows[r]
+
+    @property
+    def shards(self) -> list:
+        """Row 0's shards."""
+        return self.rows[0].shards
+
+    @property
+    def devices(self) -> tuple:
+        """Every cell's device, row by row (row 0's S first)."""
+        return tuple(d for row in self.rows for d in row.devices)
+
+    # ---- one shard of row 0; a store reaches every row -------------------
+
+    def local(self, s: int) -> IndexState:
+        """Row 0's shard ``s`` (its own tensors, in a new record)."""
+        return self.rows[0].local(s)
+
+    def store(self, s: int, local: IndexState) -> None:
+        """Take shard ``s``'s state back into row 0 (``ShardRow.store``)
+        and copy it into shard ``s`` of every other row."""
+        self.rows[0].store(s, local)
+        for row in self.rows[1:]:
+            for f in FIELDS:
+                _assign(row.shards[s], f, getattr(local, f))
+
     # ---- the replicas ---------------------------------------------------
 
     def replicate(self) -> None:
-        """Every shard's replica := shard 0's replicated fields, copied
-        onto the shard's device in place."""
+        """Every cell's replica := row 0's shard 0's replicated fields,
+        copied onto the cell's device in place."""
         src = self.shards[0]
-        for s in range(1, self.n_shards):
-            dst = self.shards[s]
-            for f in REPLICATED_FIELDS:
-                _assign(dst, f, getattr(src, f))
+        for row in self.rows:
+            for dst in row.shards:
+                if dst is src:
+                    continue
+                for f in REPLICATED_FIELDS:
+                    _assign(dst, f, getattr(src, f))
 
     # ---- the global view ------------------------------------------------
 
@@ -169,10 +237,10 @@ class ShardedState:
 
     def field(self, name: str, device=None) -> torch.Tensor:
         """One field of the whole index, a copy on ``device`` (the
-        controller when None): a sharded field gathered in shard order,
-        a replicated one shard 0's replica."""
+        controller when None), read from row 0: a sharded field gathered
+        in shard order, a replicated one shard 0's replica."""
         return gather([getattr(st, name) for st in self.shards],
-                      self.placements[name], device)
+                      self._row_placements[name], device)
 
     def gather(self, device=None) -> IndexState:
         """The whole index as an ordinary ``IndexState`` on ``device``
@@ -181,23 +249,22 @@ class ShardedState:
 
     def scatter(self, state, fields=None) -> None:
         """Write a whole-index ``state`` (or the named ``fields`` of it)
-        back over the shards: each shard's rows of a sharded field, and
-        every shard's replica of a replicated one."""
+        back over every row's shards: each shard's rows of a sharded
+        field, and every shard's replica of a replicated one."""
         for f in FIELDS if fields is None else fields:
             self.scatter_field(f, getattr(state, f))
 
     def scatter_field(self, name: str, value: torch.Tensor) -> None:
-        if self.placements[name].model_dim is None:
-            for st in self.shards:
-                _assign(st, name, value)
-            return
-        for s, st in enumerate(self.shards):
-            lo = s * self.pool
-            _assign(st, name, value[lo:lo + self.pool])
+        whole = self.placements[name].model_dim is None
+        for row in self.rows:
+            for s, st in enumerate(row.shards):
+                lo = s * self.pool
+                _assign(st, name, value if whole
+                        else value[lo:lo + self.pool])
 
     def memory_bytes(self) -> int:
         """Bytes of the index as the reference counts its global arrays:
-        every shard's rows of the sharded fields, one replica of the
+        one row's shards' rows of the sharded fields, one replica of the
         replicated ones."""
         def nbytes(st, f):
             t = getattr(st, f)
@@ -285,15 +352,17 @@ class GlobalView:
     that reads it by field and writes it by posting (the cold tier, the
     metrics, the invariants):
 
-      * reading a sharded field gathers a copy of it onto the controller,
-        a :class:`GatheredCopy` that refuses in-place writes; reading a
-        replicated field gives shard 0's replica (a write into it lands
-        there, and :meth:`ShardedState.replicate` carries it to the
-        other shards);
-      * assigning a field scatters it (a replicated one to every shard);
-      * :meth:`get_rows` / :meth:`set_rows` / :meth:`row_parts` read and
-        write rows by global pid on the shards that own them, the row
-        interface ``IndexState`` shares."""
+      * reading a sharded field gathers a copy of row 0's onto the
+        controller, a :class:`GatheredCopy` that refuses in-place writes;
+        reading a replicated field gives row 0's shard 0's replica (a
+        write into it lands there, and :meth:`ShardedState.replicate`
+        carries it to every other cell);
+      * assigning a field scatters it to every row (a replicated one to
+        every shard);
+      * :meth:`get_rows` / :meth:`row_parts` read rows by global pid on
+        row 0's shards that own them, :meth:`set_rows` writes them on
+        the owning shard of every row: the row interface ``IndexState``
+        shares."""
 
     def __init__(self, sh: ShardedState):
         object.__setattr__(self, "_sh", sh)
@@ -320,15 +389,16 @@ class GlobalView:
                     self.device)
 
     def row_parts(self, name: str, pids: torch.Tensor) -> list:
-        """``field[pids]`` of a sharded field where it lives: (positions
-        in ``pids``, the owning shard's rows on its own device), shard by
-        shard."""
+        """``field[pids]`` of a sharded field where it lives in row 0:
+        (positions in ``pids``, the owning shard's rows on its own
+        device), shard by shard."""
         sh = self._sh
+        row = sh.rows[0]
         out = []
         for s, at, loc in sh.by_shard(pids):
-            with sh.on(s):
-                out.append((at, getattr(sh.shards[s], name)[
-                    loc.to(sh.devices[s])]))
+            with row.on(s):
+                out.append((at, getattr(row.shards[s], name)[
+                    loc.to(row.devices[s])]))
         return out
 
     def get_rows(self, name: str, pids: torch.Tensor) -> torch.Tensor:
@@ -343,21 +413,30 @@ class GlobalView:
     def set_rows(self, name: str, pids: torch.Tensor, value,
                  valid: torch.Tensor) -> None:
         """``field[pids[j]] = value[j]`` where ``valid[j]`` (``masked_set_``
-        on each owning shard); ``value`` a scalar or one row a pid."""
+        on each owning shard, in every row); ``value`` a scalar or one
+        row a pid."""
         sh = self._sh
         for s, at, loc in sh.by_shard(pids):
-            dev = sh.devices[s]
             v = value
             if torch.is_tensor(value) and value.dim():
-                v = value[at.to(value.device)].to(dev)
-            with sh.on(s):
-                masked_set_(getattr(sh.shards[s], name), loc.to(dev), v,
-                            valid[at.to(valid.device)].to(dev))
+                v = value[at.to(value.device)]
+            ok = valid[at.to(valid.device)]
+            for row in sh.rows:
+                dev = row.devices[s]
+                with row.on(s):
+                    masked_set_(getattr(row.shards[s], name), loc.to(dev),
+                                v.to(dev) if torch.is_tensor(v) else v,
+                                ok.to(dev))
+
+
+def _cell(r: int, s: int) -> str:
+    return f"shard {s}" if r == 0 else f"row {r}'s shard {s}"
 
 
 def check_replicas(sh: ShardedState) -> None:
     """Raise ``AssertionError`` unless every shard's replica of every
-    replicated field equals shard 0's, bit for bit."""
+    replicated field equals row 0's shard 0's, and every row's shards
+    equal row 0's, every field, bit for bit."""
     ref = sh.shards[0]
     for s in range(1, sh.n_shards):
         st = sh.shards[s]
@@ -366,25 +445,74 @@ def check_replicas(sh: ShardedState) -> None:
             if not torch.equal(t, getattr(ref, f).to(t.device)):
                 raise AssertionError(f"replica of {f} on shard {s} differs "
                                      "from shard 0's")
+    for r in range(1, sh.n_rows):
+        for s, st in enumerate(sh.rows[r].shards):
+            for f in FIELDS:
+                t, want = getattr(st, f), getattr(sh.shards[s], f)
+                if t.shape != want.shape or not torch.equal(
+                        t, want.to(t.device)):
+                    raise AssertionError(f"{f} of {_cell(r, s)} differs "
+                                         f"from row 0's shard {s}'s")
 
 
 def audit_placement(sh: ShardedState) -> None:
-    """Raise ``AssertionError`` unless every tensor of shard s lies on
-    ``mesh.devices[s]`` and no two shards share storage."""
+    """Raise ``AssertionError`` unless every tensor of every cell (r, s)
+    lies on row r's s-th device and no two cells share storage."""
     owner = {}
-    for s, st in enumerate(sh.shards):
-        for f in FIELDS:
-            t = getattr(st, f)
-            if t.device != sh.devices[s]:
-                raise AssertionError(f"shard {s}'s {f} is on {t.device}, "
-                                     f"not on {sh.devices[s]}")
-            if not t.numel():
-                continue
-            key = (t.device, t.untyped_storage().data_ptr())
-            if owner.setdefault(key, (s, f))[0] != s:
-                raise AssertionError(
-                    f"shard {s}'s {f} shares storage with shard "
-                    f"{owner[key][0]}'s {owner[key][1]}")
+    for r, row in enumerate(sh.rows):
+        for s, st in enumerate(row.shards):
+            for f in FIELDS:
+                t = getattr(st, f)
+                if t.device != row.devices[s]:
+                    raise AssertionError(f"{_cell(r, s)}'s {f} is on "
+                                         f"{t.device}, not on "
+                                         f"{row.devices[s]}")
+                if not t.numel():
+                    continue
+                key = (t.device, t.untyped_storage().data_ptr())
+                if owner.setdefault(key, (r, s, f))[:2] != (r, s):
+                    o = owner[key]
+                    raise AssertionError(
+                        f"{_cell(r, s)}'s {f} shares storage with "
+                        f"{_cell(o[0], o[1])}'s {o[2]}")
+
+
+def _every_row(run_row):
+    """An update program over every data row, in row order: each row
+    runs ``run_row`` on its own replica with the jobs on its controller
+    (the reference's jobs are replicated, ``P()``), so the rows stay
+    identical; returns (sh, row 0's outputs)."""
+    def run(sh, *args):
+        outs = None
+        for row in sh.rows:
+            ctrl = row.mesh.device
+            got = run_row(row, *(a.to(ctrl, non_blocking=True)
+                                 if torch.is_tensor(a) else a for a in args))
+            if outs is None:
+                outs = got[1:]
+        return (sh,) + tuple(outs)
+    return run
+
+
+def _split_rows(run_row):
+    """A search over the data rows: the batch split into one contiguous
+    block a row (``P("data")`` on dim 0), every row's search launched
+    before any is read, the answers joined on the controller in row
+    order."""
+    def run(sh, queries: torch.Tensor):
+        D = len(sh.rows)
+        if D == 1:
+            return run_row(sh.rows[0], queries)
+        Q = queries.shape[0]
+        if Q % D:
+            raise ValueError(f"a batch of {Q} queries does not divide over "
+                             f"the {D} data rows")
+        outs = [run_row(row, blk.to(row.mesh.device, non_blocking=True))
+                for row, blk in zip(sh.rows, torch.split(queries, Q // D))]
+        ctrl = sh.mesh.device
+        return tuple(all_gather([o[i] for o in outs], 0, ctrl)
+                     for i in range(2))
+    return run
 
 
 def _local_topk(scores, ids, k):
@@ -446,16 +574,18 @@ def make_sharded_search(cfg: UBISConfig, mesh: Mesh, k: int,
                         nprobe: int | None = None,
                         shard_cache_scan: bool = True):
     """The sharded search: (sh, queries (Q, d)) -> (ids (Q, k) int32,
-    scores (Q, k)) on the controller.  ``shard_cache_scan``: each shard
-    scans only its 1/S slice of the replicated cache (else shard 0 scans
-    all of it); the merge all-gather combines the partial top-ks.
+    scores (Q, k)) on the controller, the batch split over the data rows
+    (Q a multiple of D; a :class:`ShardRow` takes any Q).
+    ``shard_cache_scan``: each shard scans only its 1/S slice of the
+    replicated cache (else shard 0 scans all of it); the merge
+    all-gather combines the partial top-ks.
     ``cfg.shard_probe_cap`` > 0 compacts each shard's phase-2 scan to its
     first that many owned probes (phase-1 order, best first)."""
     if nprobe is None:
         nprobe = cfg.nprobe
     probe_cap = cfg.shard_probe_cap
 
-    def run(sh: ShardedState, queries: torch.Tensor):
+    def run(sh: ShardRow, queries: torch.Tensor):
         S, M_local, ctrl = sh.n_shards, sh.pool, sh.mesh.device
         qs = sh.to_shards(queries.to(torch.float32))
         locs = [sh.local(s) for s in range(S)]
@@ -521,13 +651,15 @@ def make_sharded_search(cfg: UBISConfig, mesh: Mesh, k: int,
                               all_gather(i_parts, 1, ctrl), k)
         return torch.where(sf < BIG / 2, idf, -1), sf
 
-    return run
+    return _split_rows(run)
 
 
 def make_sharded_insert(cfg: UBISConfig, mesh: Mesh,
                         route_alpha: float = 0.0):
     """The sharded insert round: (sh, vecs, ids, valid) -> (sh, accepted
-    (J,) bool, routed (J,) int32), the masks on the controller.
+    (J,) bool, routed (J,) int32), the masks on the controller.  Like
+    every update program it runs on every data row (``_every_row``) and
+    returns row 0's outputs.
 
     Each shard locates jobs against its local centroids (NORMAL, not
     spilled postings only); a global argmin routes each job to its owner
@@ -542,7 +674,7 @@ def make_sharded_insert(cfg: UBISConfig, mesh: Mesh,
     decisively closest to."""
     C = cfg.capacity
 
-    def run(sh: ShardedState, vecs, ids, valid):
+    def run(sh: ShardRow, vecs, ids, valid):
         S, M_local, ctrl = sh.n_shards, sh.pool, sh.mesh.device
         vs, js, oks = sh.to_shards(vecs), sh.to_shards(ids), \
             sh.to_shards(valid)
@@ -608,7 +740,7 @@ def make_sharded_insert(cfg: UBISConfig, mesh: Mesh,
             sh.store(my, st)
         return sh, accepted, routed.to(torch.int32)
 
-    return run
+    return _every_row(run)
 
 
 def make_sharded_delete(cfg: UBISConfig, mesh: Mesh):
@@ -620,7 +752,7 @@ def make_sharded_delete(cfg: UBISConfig, mesh: Mesh):
     UBIS semantics only."""
     C = cfg.capacity
 
-    def run(sh: ShardedState, del_ids, valid):
+    def run(sh: ShardRow, del_ids, valid):
         done0 = None
         safe = del_ids.to(torch.int64).clamp(0, cfg.max_ids - 1)
         firsts = sh.to_shards(vm.first_occurrence_mask(safe) & valid)
@@ -639,7 +771,7 @@ def make_sharded_delete(cfg: UBISConfig, mesh: Mesh):
                 done0 = done
         return sh, done0
 
-    return run
+    return _every_row(run)
 
 
 def make_sharded_background(cfg: UBISConfig, mesh: Mesh, bg_ops: int = 8,
@@ -667,7 +799,7 @@ def make_sharded_background(cfg: UBISConfig, mesh: Mesh, bg_ops: int = 8,
     round and GC: the rebalance planner's input."""
     C = cfg.capacity
 
-    def run(sh: ShardedState, gc_min_version):
+    def run(sh: ShardRow, gc_min_version):
         S, M_local, ctrl = sh.n_shards, sh.pool, sh.mesh.device
         locs, olds, deltas, execs, gcs = [], [], [], [], []
         for my in range(S):
@@ -717,7 +849,7 @@ def make_sharded_background(cfg: UBISConfig, mesh: Mesh, bg_ops: int = 8,
         return (sh, psum(execs, ctrl), psum(gcs, ctrl),
                 all_gather(pressure, 0, ctrl))
 
-    return run
+    return _every_row(run)
 
 
 def make_sharded_migrate(cfg: UBISConfig, mesh: Mesh, jobs: int = 8):
@@ -748,7 +880,7 @@ def make_sharded_migrate(cfg: UBISConfig, mesh: Mesh, jobs: int = 8):
     The free stack leaves fail-safe EMPTY."""
     C = cfg.capacity
 
-    def run(sh: ShardedState, src_pids, dst_shards, valid):
+    def run(sh: ShardRow, src_pids, dst_shards, valid):
         if src_pids.shape[0] != jobs:
             raise ValueError(f"migrate round built for jobs={jobs}, "
                              f"got batch of {src_pids.shape[0]}")
@@ -859,19 +991,21 @@ def make_sharded_migrate(cfg: UBISConfig, mesh: Mesh, jobs: int = 8):
             sh.store(my, st)
         return sh, migrated, new_global.to(torch.int32)
 
-    return run
+    return _every_row(run)
 
 
 def make_sharded_exact(cfg: UBISConfig, mesh: Mesh, k: int):
     """The exact top-k oracle over the sharded live contents: (sh,
     queries) -> (ids, scores) on the controller, the sharded form of
-    ``search.brute_force``.  Each shard scans every slot it owns (slot
+    ``search.brute_force``, on row 0 (every row holds the same index, and
+    the oracle gains nothing from the data axis).  Each shard scans
+    every slot it owns (slot
     validity, visibility, not spilled) and its 1/S slice of the cache,
     takes a local top-k of its own id rows, and one gather + merge gives
     the global result.  The caller chunks the queries: a shard's score
     block is Q x (M_local * C + its cache slice)."""
 
-    def run(sh: ShardedState, queries: torch.Tensor):
+    def run(sh: ShardRow, queries: torch.Tensor):
         S, ctrl = sh.n_shards, sh.mesh.device
         qs = sh.to_shards(queries.to(torch.float32))
         s_parts, i_parts = [], []
@@ -895,4 +1029,7 @@ def make_sharded_exact(cfg: UBISConfig, mesh: Mesh, k: int):
                               all_gather(i_parts, 1, ctrl), k)
         return torch.where(sf < BIG / 2, idf, -1), sf
 
-    return run
+
+    def on_row0(sh, queries: torch.Tensor):
+        return run(sh.rows[0], queries)
+    return on_row0

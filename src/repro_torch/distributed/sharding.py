@@ -1,33 +1,37 @@
-"""The sharded plane's mesh: one ``model`` shard a device.
+"""The sharded plane's mesh: a grid of devices, data rows by model shards.
 
 The JAX package runs the sharded programs under ``shard_map`` over a
-``("data", "model")`` device mesh: the posting pool shards over
-``model``, query batches over ``data``.  JAX's sharded driver is a
-single controller: one Python process drives every device of the mesh.
-So is the port's.  A :class:`Mesh` names one ``torch.device`` per
-``model`` shard (``Mesh.devices``): shard s's rows and its replica of
-every replicated field live on ``devices[s]`` in storage of their own
-(``core/sharded.py``), each program runs shard s's stage under that
-device, and the collectives copy each shard's value onto the device
-that consumes it and combine **in shard order** (the merges' tie order
-depends on it):
+``("data", "model")`` device mesh (``("pod", "data", "model")`` on a
+pod): the posting pool shards over ``model``, query batches over the
+data axes, and every field is whole over ``data``, so each data row
+holds a whole replica of the shards.  JAX's sharded driver is a single
+controller: one Python process drives every device of the mesh.  So is
+the port's.  A :class:`Mesh` names one ``torch.device`` a cell of the
+grid (``Mesh.devices``, row-major over the axes, the order of
+``jax.make_mesh``): D rows (the product of the axes other than
+``model``) of S ``model`` shards.  Cell (r, s) holds shard s's rows and
+its replica of every replicated field in storage of its own
+(``core/sharded.py``); each program runs a row's S stages, stage s under
+its cell's device, and the collectives copy each shard's value onto the
+device that consumes it and combine **in shard order** (the merges' tie
+order depends on it):
 
   * ``all_gather(tiled=True)`` -> :func:`all_gather` (``torch.cat``);
   * ``psum`` -> :func:`psum` (a sum, added in shard order);
   * ``pmax`` -> :func:`pmax`.
 
-On one card ``devices`` is that card S times: the same code, each shard
-with its own storage.  On several cards the launches of a stage return
-at once, so the S stages of a program overlap across the cards as they
-do under ``shard_map``; a copy between cards is ordered after the
-producing stage and before the consuming one by the two devices' current
-streams (PyTorch's device-to-device copy waits on both).
+Row r's controller, its shard 0's device (``mesh.row(r).device``),
+runs the row's merges; the mesh's controller (``Mesh.device``) is cell
+(0, 0)'s.  A search splits its batch over the rows; an update runs on every
+row, so the rows stay identical.
 
-The ``data`` axis only sets the multiple that query batches pad to:
-every query's answer is independent of the others, so padding changes
-no answer.  It holds no devices: a data x model mesh over cards, which
-would replicate the pool over ``data``, is not ported, and a mesh whose
-device list is not one device a ``model`` shard raises.
+On one card every cell is that card: the same code, each cell with its
+own storage.  On several cards the launches of a stage return at once,
+so the stages of a program, and the rows of a search, overlap across
+the cards as they do under ``shard_map``; a copy between cards is
+ordered after the producing stage and before the consuming one by the
+two devices' current streams (PyTorch's device-to-device copy waits on
+both).
 
 The backbone's logical-axis rules (:func:`make_rules`) and their mapping
 of a leaf's logical axes onto mesh axes (:func:`logical_to_spec`, a
@@ -37,13 +41,16 @@ that ``LM.param_shapes`` and ``LM.cache_shapes`` return.
 :func:`to_named_sharding` and :func:`batch_sharding` turn a tree of
 logical axes into a tree of :class:`Placement` (the reference's
 ``NamedSharding``), and :func:`place` / :func:`gather` lay a tensor out
-over ``mesh.devices`` by one and take it back.
+over the grid's cells by one and take it back.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -66,8 +73,10 @@ def check_device(d) -> torch.device:
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """Axis sizes by name (``shape``), their order (``axis_names``) and
-    the device of every ``model`` shard (``devices``).  ``device``, the
-    controller, is shard 0's: the merges and the host reads run there."""
+    the device of every cell (``devices``, row-major over the axes).  The
+    grid is D rows (:attr:`n_rows`, the axes other than ``model``) of S
+    ``model`` shards (:attr:`n_shards`).  ``device``, the controller, is
+    cell (0, 0)'s: the driver's merges and host reads run there."""
 
     axis_sizes: Tuple[int, ...]
     axis_names: Tuple[str, ...]
@@ -80,12 +89,12 @@ class Mesh:
             raise ValueError(f"axis sizes must be >= 1: {self.axis_sizes}")
         if "model" not in self.axis_names:
             raise ValueError("the mesh needs a 'model' axis")
-        S = self.shape["model"]
-        if len(self.devices) != S:
+        cells = math.prod(int(n) for n in self.axis_sizes)
+        if len(self.devices) != cells:
             raise ValueError(
-                f"the mesh has {S} model shards and names "
-                f"{len(self.devices)} devices: one device a model shard "
-                "(a data x model mesh over cards is not ported)")
+                f"the mesh's grid {tuple(self.axis_sizes)} has {cells} "
+                f"cells and names {len(self.devices)} devices: one device "
+                "a cell")
 
     @property
     def shape(self) -> dict:
@@ -95,12 +104,39 @@ class Mesh:
     def device(self) -> torch.device:
         return self.devices[0]
 
+    @property
+    def n_shards(self) -> int:
+        return self.shape["model"]
+
+    @property
+    def n_rows(self) -> int:
+        return len(self.devices) // self.n_shards
+
+    @functools.cached_property
+    def grid(self) -> np.ndarray:
+        """(D, S): the index into ``devices`` of cell (row, shard)."""
+        idx = np.arange(len(self.devices)).reshape(self.axis_sizes)
+        idx = np.moveaxis(idx, self.axis_names.index("model"), -1)
+        return idx.reshape(-1, self.n_shards)
+
+    def row_devices(self, r: int) -> Tuple[torch.device, ...]:
+        """Row ``r``'s devices, shard by shard."""
+        return tuple(self.devices[i] for i in self.grid[r])
+
+    def row(self, r: int) -> "Mesh":
+        """Row ``r`` as a mesh of its own: every axis but ``model`` of
+        size 1, so its controller is the row's."""
+        return Mesh(tuple(n if a == "model" else 1
+                          for a, n in zip(self.axis_names, self.axis_sizes)),
+                    self.axis_names, self.row_devices(r))
+
 
 def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str], *,
               device=None, devices: Optional[Sequence] = None) -> Mesh:
     """A mesh of ``axis_shapes`` over ``axis_names`` (the arguments of
-    ``jax.make_mesh``): every ``model`` shard on ``device`` (the card
-    unless ``"cpu"``), or shard j on ``devices[j]``, one a shard."""
+    ``jax.make_mesh``): every cell on ``device`` (the card unless
+    ``"cpu"``), or cell i on ``devices[i]``, one a cell in row-major
+    order over the axes (the order ``jax.make_mesh`` lays them out in)."""
     from ..core.driver import resolve_device
     sizes = tuple(int(n) for n in axis_shapes)
     names = tuple(axis_names)
@@ -109,8 +145,7 @@ def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str], *,
             raise ValueError("pass device= or devices=, not both")
         devs = tuple(check_device(d) for d in devices)
     else:
-        S = dict(zip(names, sizes)).get("model", 1)
-        devs = (check_device(resolve_device(device)),) * S
+        devs = (check_device(resolve_device(device)),) * math.prod(sizes)
     return Mesh(sizes, names, devs)
 
 
@@ -126,9 +161,9 @@ def model_shards(max_postings: int, n_devices: int) -> int:
 
 def default_mesh(cfg, device=None) -> Mesh:
     """The JAX rule over the cards of this process: n cards give m =
-    :func:`model_shards` ``model`` shards, one a card on the first m
-    cards, and a data axis of n // m (the query batches' multiple; it
-    holds no devices).  On the CPU S = 1."""
+    :func:`model_shards` ``model`` shards and n // m data rows, every
+    card a cell (``repro/api/sharded_driver.py:79-86``).  On the CPU
+    (1, 1)."""
     from ..core.driver import resolve_device
     dev = resolve_device(device)
     if dev.type != "cuda":
@@ -137,7 +172,7 @@ def default_mesh(cfg, device=None) -> Mesh:
     m = model_shards(cfg.max_postings, n)
     return Mesh((n // m, m), ("data", "model"),
                 tuple(check_device(torch.device("cuda", i))
-                      for i in range(m)))
+                      for i in range((n // m) * m)))
 
 
 def _to(x: torch.Tensor, device) -> torch.Tensor:
@@ -220,10 +255,11 @@ def logical_to_spec(logical: Sequence[Optional[str]],
 class Placement:
     """Where a tensor lives: the mesh and one mesh-axis entry a dim
     (None, a name or a tuple of names), the reference's
-    ``NamedSharding(mesh, PartitionSpec(*spec))``.  Only ``model`` holds
-    devices: the dim whose entry names ``model`` splits over
-    ``mesh.devices``; a tensor with no such dim is whole on every
-    shard's device."""
+    ``NamedSharding(mesh, PartitionSpec(*spec))``.  A dim whose entry
+    names mesh axes splits over them (over the product of their sizes,
+    the first named axis major: ``("data", "model")`` splits over the
+    whole grid row-major); a tensor is whole over every axis that no
+    entry names, so one that names none is whole on every cell."""
 
     mesh: Mesh
     spec: Tuple[Any, ...]
@@ -234,6 +270,28 @@ class Placement:
             if e == "model" or (isinstance(e, tuple) and "model" in e):
                 return i
         return None
+
+    @property
+    def splits(self) -> List[Tuple[int, Tuple[str, ...]]]:
+        """(dim, the mesh axes it splits over) for every split dim."""
+        out = []
+        for i, e in enumerate(self.spec):
+            names = e if isinstance(e, tuple) else (e,)
+            axes = tuple(a for a in names if a in self.mesh.axis_names)
+            if axes:
+                out.append((i, axes))
+        return out
+
+    def blocks(self) -> List[Tuple[int, ...]]:
+        """Cell i's block index along each split dim, cell by cell."""
+        sizes = self.mesh.shape
+        coords = dict(zip(self.mesh.axis_names, np.unravel_index(
+            np.arange(len(self.mesh.devices)), self.mesh.axis_sizes)))
+        per_dim = [np.ravel_multi_index([coords[a] for a in axes],
+                                        [sizes[a] for a in axes])
+                   for _, axes in self.splits]
+        return [tuple(int(b[i]) for b in per_dim)
+                for i in range(len(self.mesh.devices))]
 
 
 def _is_axes(x) -> bool:
@@ -273,30 +331,50 @@ def batch_sharding(mesh: Mesh, ax_tree, rules: Dict[str, Any]):
 
 
 def place(t: torch.Tensor, placement: Placement) -> List[torch.Tensor]:
-    """``t`` laid out over ``placement.mesh.devices``: shard j's part (its
-    block of the ``model`` dim, or the whole tensor where no dim names
-    ``model``), a copy of its own on ``devices[j]``."""
-    devs = placement.mesh.devices
-    dim = placement.model_dim
-    if dim is None:
-        return [t.to(d, copy=True) for d in devs]
-    S = len(devs)
-    n = t.shape[dim]
-    if n % S:
-        raise ValueError(f"dim {dim} of size {n} does not divide over "
-                         f"{S} model shards")
-    return [p.to(d, copy=True).contiguous()
-            for p, d in zip(torch.split(t, n // S, dim=dim), devs)]
+    """``t`` laid out over ``placement.mesh.devices``: cell i's part (its
+    block of every split dim, the whole tensor where no dim splits), a
+    copy of its own on ``devices[i]``."""
+    mesh = placement.mesh
+    sizes = mesh.shape
+    splits = placement.splits
+    for dim, axes in splits:
+        k, n = math.prod(sizes[a] for a in axes), t.shape[dim]
+        if n % k:
+            raise ValueError(f"dim {dim} of size {n} does not divide over "
+                             f"{k} shards ({' x '.join(axes)})")
+    out = []
+    for dev, block in zip(mesh.devices, placement.blocks()):
+        p = t
+        for (dim, axes), b in zip(splits, block):
+            w = t.shape[dim] // math.prod(sizes[a] for a in axes)
+            p = p.narrow(dim, b * w, w)
+        out.append(p.to(dev, copy=True).contiguous())
+    return out
 
 
 def gather(parts: Sequence[torch.Tensor], placement: Placement,
            device=None) -> torch.Tensor:
     """:func:`place`'s inverse: the whole tensor on ``device`` (the
-    mesh's controller when None), in storage of its own."""
-    dst = placement.mesh.device if device is None else device
-    dim = placement.model_dim
-    if dim is None:
+    mesh's controller when None), in storage of its own, each block
+    read from the first cell that holds it."""
+    dst = torch.device(placement.mesh.device if device is None else device)
+    splits = placement.splits
+    if not splits:
         return parts[0].to(dst, copy=True)
-    if len(parts) == 1:
-        return parts[0].to(dst, copy=True)
-    return all_gather(parts, dim, dst)
+    held = {}
+    for p, block in zip(parts, placement.blocks()):
+        held.setdefault(block, p)
+    sizes = placement.mesh.shape
+    # a copy to the host is waited for; one between cards is ordered by
+    # the two devices' streams
+    blocking = dst.type == "cpu"
+
+    def join(level: int, prefix: tuple) -> torch.Tensor:
+        if level == len(splits):
+            p = held[prefix]
+            return p.to(dst) if blocking else _to(p, dst)
+        dim, axes = splits[level]
+        k = math.prod(sizes[a] for a in axes)
+        return torch.cat([join(level + 1, prefix + (b,)) for b in range(k)],
+                         dim=dim)
+    return join(0, ())

@@ -356,7 +356,12 @@ def test_default_mesh_follows_the_jax_rule(cards, max_postings):
     assert mesh.axis_sizes == tuple(want_shape)
     m = mesh.shape["model"]
     assert m == model_shards(max_postings, cards)
-    assert mesh.devices == tuple(torch.device("cuda", i) for i in range(m))
+    assert (mesh.n_rows, mesh.n_shards) == (cards // m, m)
+    assert mesh.devices == tuple(torch.device("cuda", i)
+                                 for i in range(cards))
+    for r in range(cards // m):
+        assert mesh.row_devices(r) == tuple(
+            torch.device("cuda", r * m + j) for j in range(m))
 
 
 def test_mesh_devices_are_checked():
@@ -365,9 +370,12 @@ def test_mesh_devices_are_checked():
         with pytest.raises(RuntimeError, match="not available"):
             make_mesh((1, 2), ("data", "model"),
                       devices=["cuda:0", "cuda:1"])
-    with pytest.raises(ValueError, match="one device a model shard"):
-        make_mesh((2, 2), ("data", "model"),
-                  devices=["cpu", "cpu", "cpu", "cpu"])
+    grid = make_mesh((2, 2), ("data", "model"),
+                     devices=["cpu", "cpu", "cpu", "cpu"])
+    assert (grid.n_rows, grid.n_shards) == (2, 2)
+    for shape, n in (((2, 2), 2), ((2, 2), 3), ((1, 2), 4)):
+        with pytest.raises(ValueError, match="one device a cell"):
+            make_mesh(shape, ("data", "model"), devices=["cpu"] * n)
     with pytest.raises(ValueError, match="not both"):
         make_mesh((1, 1), ("data", "model"), device="cpu", devices=["cpu"])
     mesh = make_mesh((1, 2), ("data", "model"), devices=["cpu", "cpu"])
