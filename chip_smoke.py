@@ -13,7 +13,7 @@ Phases, in order (any failure exits non-zero before the last line):
 2. Each of the ten kernels against its plain PyTorch version on the
    card: at the main paths' shapes on integer-valued data (exact
    arithmetic in any summation order, so ids and scores must match
-   exactly), with the block-wide top-k past k = 32 (k = 64, 192), and at
+   exactly), with the wide top-k past k = 32 (k = 64, 192), and at
    the edge shapes of the CPU tests (d=100 with odd C, m=10, ksub=100,
    all masked, integer ties, spilled postings and empty ADC slots);
    ``flash_attention`` (3xTF32 on the tensor cores) at 28 shapes
@@ -32,7 +32,14 @@ Phases, in order (any failure exits non-zero before the last line):
    300 x k = 1, 10, 32, aligned and one float off, on integer data, ties,
    all masked, duplicated probes and ``qp_ok`` zeros: exact; and on normal
    data ``centroid_topk`` equals the stable top-k of ``centroid_score``
-   bit for bit.  ``pq_scan_topk`` and ``rerank_topk`` at Q = 1, 31, 32,
+   bit for bit.  Their wide paths (k > 32) at k = 33, 64, 192, 264 and
+   1024 (``WIDE_CT``, ``WIDE_PS``: both query tiles, d = 99 and C = 33,
+   a split over a cluster, rows past 16,384 floats) on integer data,
+   ties, all masked, one float off, duplicated probes and ``qp_ok``
+   zeros: exact; and on normal data at the main shapes a k = 64 or 192
+   answer's first 32 (phase 1, the cache scan) or 10 (phase 2) are the
+   k = 32 or 10 answer, score bits included, and the centroid scores
+   are ``centroid_score``'s.  ``pq_scan_topk`` and ``rerank_topk`` at Q = 1, 31, 32,
    33, 256 x k = 1, 10, 32, 33, 64, 192 (1024 where P*C allows), on the
    quant path's tiles, m*C and d unaligned (C = 33, m = 10, d = 100, d =
    99), P*C past one 4,096-slot chunk and R past one 2,048-candidate
@@ -212,7 +219,11 @@ Phases, in order (any failure exits non-zero before the last line):
    one on expanded k and v, each with the backend it ran; printed also
    at phase 3j's prefill shape) as a library
    yardstick; the kernel is also held against its plain version there.
-   The block-wide top-k is timed at k = 64 and 192 too, and
+   The wide top-k paths are timed at k = 64 and 192 too (the cache
+   scan, phase 1 and phase 2 at Q = 256 and 32, beside the parent tree's,
+   and the wide ``centroid_topk``'s two launch layouts; with
+   ``--parent-tree`` the parent's kernels also run phase 2's prefix
+   check, printed), and
    ``kmeans_assign`` at the insert round's encode (2,048 rows under all
    V*m codebooks) and the re-train's full re-encode (every pool slot).
    ``centroid_score``, ``posting_scan`` and ``flash_attention`` also
@@ -296,6 +307,12 @@ TIER_SHARE = 0.75
 #: path's cadence (32 ticks) and 256 moves per tick the pool held 7,168
 #: of 19,291 live postings after the load (PERF.md, the tiered path)
 TIER_RETRAIN_EVERY = 256
+
+
+def wide_text(ops) -> str:
+    """The wide top-k paths' (k > 32) share of the launches counted since
+    the last reset."""
+    return f"; of them wide (k > 32): {json.dumps(ops.wide_launch_counts())}"
 
 
 def fail(msg: str) -> None:
@@ -680,6 +697,147 @@ def topk_checks(ops, ref, dev, seed: int) -> None:
         f"off; ties, all masked, duplicated probes, qp_ok zeros): exact; "
         f"centroid_topk == stable top-k of centroid_score on normal data at "
         f"{m} shapes: bit for bit")
+
+
+#: phase 2's shapes for the wide paths (k > 32) of ``centroid_topk``
+#: (Q, M, d) and ``posting_scan_topk`` (Q, G, C, P, d): both query tiles
+#: (16 and 32 rows) and both layouts (one or two blocks an SM), d not a
+#: multiple of 4 (the 4-byte copies; d = 99 and C = 33, odd, at k =
+#: 1024), the scan split over a cluster (Q < 67) or not, rows past 16,384
+#: floats (read from device memory); ``kernel_checks`` and
+#: ``prefix_checks`` add the main shapes, lists cut within a chunk
+WIDE_K = (33, 64, 192, 264, 1024)
+WIDE_CT = ((1, 1100, 99), (31, 1100, 128), (33, 4096, 100), (256, 4096, 128))
+WIDE_PS = ((1, 40, 33, 32, 99), (31, 40, 33, 32, 128), (33, 60, 96, 32, 100),
+           (256, 60, 96, 32, 128), (3, 10, 40, 8, 16400))
+
+
+def wide_checks(ops, ref, dev, seed: int) -> None:
+    """The wide paths against their plain versions at every shape of
+    ``WIDE_CT`` / ``WIDE_PS`` x ``WIDE_K`` (k up to M or P*C), exact on
+    integer inputs: values in [-3, 3], ties (values in [-1, 1]), all
+    masked; aligned and one float off; for the scan also duplicated
+    probes and a quarter of ``qp_ok`` zero.  Then ``prefix_checks`` on
+    real-valued data."""
+    g = np.random.default_rng(seed + 7)
+
+    def at(arr, off):
+        flat = torch.zeros(arr.size + off, device=dev)
+        flat[off:] = torch.as_tensor(arr.ravel(), device=dev)
+        return flat[off:].view(arr.shape)
+
+    def mask(shape, p):
+        return torch.as_tensor(g.random(shape) < p, device=dev)
+
+    n = 0
+    for kind in ("int", "ties", "masked", "dup"):
+        lo, hi = (-1, 2) if kind == "ties" else (-3, 4)
+        p_vis = 0.0 if kind == "masked" else 0.7
+        off = int(kind in ("ties", "dup"))
+        for Q, M, d in WIDE_CT:
+            if kind == "dup":
+                continue
+            q, c = (at(g.integers(lo, hi, s).astype(np.float32), off)
+                    for s in ((Q, d), (M, d)))
+            vis = mask(M, p_vis)
+            for k in WIDE_K:
+                require_exact(f"centroid_topk[{kind} Q={Q} M={M} d={d} "
+                              f"k={k} offset={off}]",
+                              ops.centroid_topk(q, c, vis, k=k),
+                              ref.centroid_topk(q, c, vis, k))
+                n += 1
+        for Q, G, C, P, d in WIDE_PS:
+            q, tiles = (at(g.integers(lo, hi, s).astype(np.float32), off)
+                        for s in ((Q, d), (G, C, d)))
+            valid, pvis = mask((G, C), p_vis), mask(G, 0.9)
+            probe = torch.as_tensor(g.integers(0, G, (Q, P)).astype(
+                np.int32), device=dev)
+            if kind == "dup":
+                probe[:, P // 2:] = probe[:, :P - P // 2]
+            qp_ok = (mask((Q, P), 0.75).to(torch.int32) if kind == "dup"
+                     else None)
+            full = (torch.ones((Q, P), dtype=torch.int32, device=dev)
+                    if qp_ok is None else qp_ok)
+            for k in WIDE_K:
+                if k > P * C:
+                    continue
+                require_exact(
+                    f"posting_scan_topk[{kind} Q={Q} C={C} P={P} d={d} "
+                    f"k={k} offset={off}]",
+                    ops.posting_scan_topk(q, tiles, valid, pvis, probe, k=k,
+                                          qp_ok=qp_ok),
+                    ref.posting_scan_topk(q, tiles, valid & pvis[:, None],
+                                          full, probe, k))
+                n += 1
+    torch.cuda.synchronize()
+    say(f"  wide top-k (k {WIDE_K}) vs plain at {n} integer shapes "
+        f"(centroid_topk {WIDE_CT}, posting_scan_topk {WIDE_PS}; ties, all "
+        "masked, one float off, duplicated probes, qp_ok zeros): exact")
+    bad = prefix_checks(ops, dev, seed)
+    if bad:
+        fail("wide top-k prefix check: " + "; ".join(bad))
+    say("  wide top-k prefix on normal data at the main shapes: "
+        "centroid_topk(k)[:, :32] == centroid_topk(32) and == centroid_score "
+        "at its picks, posting_scan_topk(k)[:, :10] == posting_scan_topk(10), "
+        "k = 64, 192, ids and score bits: ok")
+
+
+def prefix_checks(ops, dev, seed: int) -> list:
+    """On normal data at the main paths' shapes (phase 1: 256 and 32 x
+    65,504 x 128, 70% visible; the cache scan 256 x 4,096; phase 2: 256
+    and 32 queries x 32 probes into 2,000 tiles of 96 x 128): for k = 64
+    and 192, ``centroid_topk(k)``'s first 32 columns are
+    ``centroid_topk(32)``'s ids and score bits, and its scores are
+    ``centroid_score``'s at its picks; ``posting_scan_topk(k)``'s first
+    10 are ``posting_scan_topk(10)``'s.  Where the wide path scored with
+    other arithmetic than the warp path, a near-tie orders them apart.
+    Returns the failures (uses only ``ops``' public functions, so it runs
+    on another tree's kernels too)."""
+    g = np.random.default_rng(seed + 8)
+
+    def normal(*shape):
+        return torch.as_tensor(g.standard_normal(shape, np.float32),
+                               device=dev)
+
+    bad = []
+
+    def same(label, a, b):
+        for x, y, what in ((a[0], b[0], "score bits"), (a[1], b[1], "ids")):
+            if not torch.equal(x.contiguous().view(torch.int32),
+                               y.contiguous().view(torch.int32)):
+                bad.append(f"{label}: {what} differ at "
+                           f"{int((x != y).sum())} entries")
+
+    c, vis = normal(65504, 128), torch.as_tensor(g.random(65504) < 0.7,
+                                                 device=dev)
+    cache = normal(4096, 128)
+    cache_ok = torch.ones(4096, dtype=torch.bool, device=dev)
+    for label, q, cen, ok in (("phase 1 Q=256", normal(256, 128), c, vis),
+                              ("phase 1 Q=32", normal(32, 128), c, vis),
+                              ("cache scan", normal(256, 128), cache,
+                               cache_ok)):
+        s32 = ops.centroid_topk(q, cen, ok, k=32)
+        full = ops.centroid_score(q, cen, ok)
+        for k in (64, 192):
+            s, i = ops.centroid_topk(q, cen, ok, k=k)
+            same(f"centroid_topk {label} k={k} vs k=32",
+                 (s[:, :32], i[:, :32]), s32)
+            same(f"centroid_topk {label} k={k} vs centroid_score",
+                 (s, i), (torch.gather(full, 1, i.long()), i))
+    tiles, svalid = normal(2000, 96, 128), torch.as_tensor(
+        g.random((2000, 96)) < 0.9, device=dev)
+    pvis = torch.ones(2000, dtype=torch.bool, device=dev)
+    for Q in (256, 32):
+        q = normal(Q, 128)
+        probe = torch.as_tensor(g.integers(0, 2000, (Q, 32)).astype(
+            np.int32), device=dev)
+        s10 = ops.posting_scan_topk(q, tiles, svalid, pvis, probe, k=10)
+        for k in (64, 192):
+            s, i = ops.posting_scan_topk(q, tiles, svalid, pvis, probe, k=k)
+            same(f"posting_scan_topk Q={Q} k={k} vs k=10",
+                 (s[:, :10], i[:, :10]), s10)
+    torch.cuda.synchronize()
+    return bad
 
 
 #: phase 2's shapes for the quant plane's phase-2 kernels: ``pq_scan_topk``
@@ -1496,7 +1654,8 @@ def serve_path(dev, ops, ref, *, seed: int, reduced: bool = False,
         f"latency of the search requests p50 {lat.quantile(0.5) * 1e3:.3f} "
         f"ms, p99 {lat.quantile(0.99) * 1e3:.3f} ms over {lat.count}")
     log(f"  seconds per phase: {json.dumps({k: round(v, 3) for k, v in secs.items()})}")
-    log(f"  launches on the serve path: {json.dumps(counts)}")
+    log(f"  launches on the serve path: {json.dumps(counts)}"
+        + wide_text(ops))
     log(f"  index stats: live postings {len(server.index.posting_lengths())}, "
         + json.dumps({k: server.index.stats[k] for k in (
             "inserted", "bg_split", "bg_merge", "bg_compact", "drained")}))
@@ -1678,7 +1837,8 @@ def fused_path(dev, ops, fdrv, fsecs, seed: int, log=say) -> dict:
         seed=seed, round_size=2048, bg_ops=64,
         index_kw=dict(fused_tick=True, obs=obs), log=log)
     launched = ops.launch_counts()
-    log(f"  launches on the fused path: {json.dumps(launched)}")
+    log(f"  launches on the fused path: {json.dumps(launched)}"
+        + wide_text(ops))
     for name in PATH_KERNELS["float"]:
         if launched[name] <= 0:
             fail(f"kernel {name} was never launched on the fused path")
@@ -2206,7 +2366,8 @@ def sharded_path(dev, ops, qpath, seed: int, log=say):
     launched = ops.launch_counts()
     log(f"  seconds per phase: "
         f"{json.dumps({k: round(v, 3) for k, v in secs.items()})}")
-    log(f"  launches on the sharded float path: {json.dumps(launched)}")
+    log(f"  launches on the sharded float path: {json.dumps(launched)}"
+        + wide_text(ops))
     need("float", launched)
     placement_line(drv.sharded, log)
     exact_against_brute_force(drv, q, log)
@@ -2238,7 +2399,8 @@ def sharded_path(dev, ops, qpath, seed: int, log=say):
     launched = ops.launch_counts()
     log(f"  seconds per phase: "
         f"{json.dumps({k: round(v, 3) for k, v in qsecs.items()})}")
-    log(f"  launches on the sharded quant path: {json.dumps(launched)}")
+    log(f"  launches on the sharded quant path: {json.dumps(launched)}"
+        + wide_text(ops))
     need("quant", launched)
     want = live0 + int(sq.stats["inserted"] - sq.stats["deleted"])
     if sq.live_count() != want:
@@ -2342,6 +2504,7 @@ def skew_runs(dev, ops, seed: int, log=say) -> dict:
         "gated): " + ", ".join(f"{n} {r['recall']:.4f} / "
                                f"{r['recall_wide']:.4f}"
                                for n, r in res.items()))
+    log("  3h-3 launches" + wide_text(ops))
     return ops.launch_counts()
 
 
@@ -3501,6 +3664,10 @@ def topk_inputs(ops, drv, q_np, qdrv=None, qq_np=None, tdrv=None,
     return x
 
 
+#: the k at which phase 4 times the wide top-k paths (rerank_k = 192)
+WIDE_TIMED_K = (64, 192)
+
+
 def topk_cases(ops, x) -> dict:
     """The calls that phase 4 times for rows 2 and 4-8: name -> a call
     through ``ops``, which may be another tree's module (only its public
@@ -3519,6 +3686,20 @@ def topk_cases(ops, x) -> dict:
             q32, x["vecs"], x["slot_valid"], x["pvis"], x["probe"][:32],
             k=10),
     }
+    # the wide paths at the shapes they run: (a) the tiered search's cache
+    # scan at k = rerank_k, (b) phase 1 past nprobe 32, (c) phase 2 past k
+    # = 32
+    for k in WIDE_TIMED_K:
+        cases[f"centroid_topk cache scan k={k}"] = (
+            lambda k=k: ops.centroid_topk(q, x["cache"], x["cache_ok"], k=k))
+        for Q in (256, 32):
+            cases[f"centroid_topk Q={Q} k={k}"] = (
+                lambda Q=Q, k=k: ops.centroid_topk(q[:Q], x["cen"], x["vis"],
+                                                   k=k))
+            cases[f"posting_scan_topk Q={Q} k={k}"] = (
+                lambda Q=Q, k=k: ops.posting_scan_topk(
+                    q[:Q], x["vecs"], x["slot_valid"], x["pvis"],
+                    x["probe"][:Q], k=k))
     if "quant" in x:
         a = x["quant"]
         cases["pq_scan_topk Q=256"] = lambda: ops.pq_scan_topk(
@@ -3564,13 +3745,24 @@ def topk_work(x) -> dict:
                            len(x["cache"]), 10)):
         out[name] = (2.0 * Q * M * d + 2.0 * M * d,
                      4.0 * (Q * d + M * d) + M + 8.0 * Q * k)
-    for name, probe in (("posting_scan_topk Q=256", x["probe"]),
-                        ("posting_scan_topk Q=32", x["probe"][:32])):
-        Q, P = probe.shape
+    for k in WIDE_TIMED_K:
+        for name, Q, M in ((f"centroid_topk cache scan k={k}", len(x["q"]),
+                            len(x["cache"])),
+                           (f"centroid_topk Q=256 k={k}", 256,
+                            len(x["cen"])),
+                           (f"centroid_topk Q=32 k={k}", 32, len(x["cen"]))):
+            out[name] = (2.0 * Q * M * d + 2.0 * M * d,
+                         4.0 * (Q * d + M * d) + M + 8.0 * Q * k)
+    for Q in (256, 32):
+        probe = x["probe"][:Q]
+        P = probe.shape[1]
         U = int(torch.unique(probe).numel())
-        out[name] = (2.0 * Q * P * C * d + 2.0 * U * C * d,
-                     4.0 * Q * d + U * C * (4.0 * d + 1) + 8.0 * Q * P
-                     + 8.0 * Q * 10)
+        for k in (10,) + WIDE_TIMED_K:
+            name = (f"posting_scan_topk Q={Q}" if k == 10
+                    else f"posting_scan_topk Q={Q} k={k}")
+            out[name] = (2.0 * Q * P * C * d + 2.0 * U * C * d,
+                         4.0 * Q * d + U * C * (4.0 * d + 1) + 8.0 * Q * P
+                         + 8.0 * Q * k)
     if "quant" in x:
         a = x["quant"]
         _, V, m, ksub = a["luts"].shape
@@ -3663,12 +3855,19 @@ def tree_topk_times(tree: str, path: str) -> tuple:
     return res["times"], res["misses"]
 
 
+def short_kernel(k: str) -> str:
+    """A device kernel's name without its return type, namespace, template
+    arguments and parameters."""
+    return re.sub(r"^void |<.*$|\(.*$", "",
+                  k.replace("(anonymous namespace)::", ""))
+
+
 def kernel_split(kern: dict, name: str) -> tuple:
     """(the named kernel's device ms, with its merge or its gather's
     inversion; those kernels' ms by short name; the other kernels' ms by
     short name) from ``device_kernels``."""
     def short(k):
-        return re.sub(r"^void |<.*$|\(.*$", "", k)[:40]
+        return short_kernel(k)[:40]
 
     def mine(k):
         return name in k or "topk_merge" in k
@@ -3737,6 +3936,82 @@ def time_topk_shapes(ops, x, parent_tree=None) -> None:
     say(f"  the fresh process's profiler sessions: {misses['retried']} "
         f"opened again, {misses['not_measured']} calls not measured; "
         f"first shortfalls {misses['short']}")
+
+
+#: run in another checkout by ``--parent-tree``: ``prefix_checks`` on that
+#: tree's kernels, in a fresh process
+PARENT_PREFIX = """
+import json, sys, torch
+sys.path.insert(0, {src!r})
+sys.path.insert(0, {root!r})
+import chip_smoke as cs
+from repro_torch.kernels import ops
+print(json.dumps(cs.prefix_checks(ops, torch.device("cuda"), {seed})))
+"""
+
+
+def parent_prefix(tree: str, seed: int) -> None:
+    """Phase 2's prefix check (``prefix_checks``) on ``tree``'s kernels:
+    printed, not gated (an older tree's wide path may score with other
+    arithmetic than its warp path)."""
+    tree = os.path.abspath(tree)
+    out = subprocess.run(
+        [sys.executable, "-c", PARENT_PREFIX.format(
+            src=os.path.join(tree, "src"), root=ROOT, seed=seed)],
+        capture_output=True, text=True, timeout=600, cwd=tree)
+    if out.returncode != 0:
+        fail(f"the prefix check on {tree}: exit {out.returncode}: "
+             f"{out.stderr[-2000:]}")
+    bad = json.loads(out.stdout.strip().splitlines()[-1])
+    say(f"  parent tree's wide top-k prefix check (phase 2's, not gated): "
+        + ("; ".join(bad) if bad else "passes"))
+
+
+def time_wide_layouts(ops, x) -> None:
+    """The wide ``centroid_topk``'s two launch layouts (kernels/
+    centroid_topk.py: ``wide_plan``) at phase 4's wide shapes, each
+    forced: one block an SM with the longest lists that fit, and two an
+    SM (16-row tiles, lists of ``PAIR_CAP``) where k fits them; device
+    time alone (``device_ms``), and both answers equal."""
+    from repro_torch.kernels import centroid_topk as ct
+
+    def one(Q, M, k):
+        bq = 32 if Q > 32 and ct.list_cap(32) >= k + 128 else 16
+        return ct._wide_launch(Q, M, k, bq, ct.list_cap(bq), ct._SMS)
+
+    def two(Q, M, k):
+        return ct._wide_launch(Q, M, k, 16, ct.PAIR_CAP, ct._TARGET_BLOCKS)
+
+    q = x["q"]
+    shapes = [(f"cache scan k={k}", q, x["cache"], x["cache_ok"], k)
+              for k in WIDE_TIMED_K]
+    shapes += [(f"Q={Q} k={k}", q[:Q], x["cen"], x["vis"], k)
+               for Q in (256, 32) for k in WIDE_TIMED_K]
+    plan, parts = ct.wide_plan, []
+    try:
+        for label, qq, cen, ok, k in shapes:
+            times, outs = [], []
+            for name, layout in (("one an SM", one), ("two an SM", two)):
+                if name == "two an SM" and k + 128 > ct.PAIR_CAP:
+                    continue
+                ct.wide_plan = layout
+                fn = (lambda qq=qq, cen=cen, ok=ok, k=k:
+                      ops.centroid_topk(qq, cen, ok, k=k))
+                outs.append(fn())
+                p = layout(len(qq), len(cen), k)
+                times.append(f"{name} (bq {p.bq}, lists {p.cap}, "
+                             f"{-(-len(qq) // p.bq) * p.nchunks} blocks) "
+                             f"{ms_text(device_ms(fn, 'centroid_topk'))}")
+            ct.wide_plan = plan
+            chosen = plan(len(qq), len(cen), k)
+            for o in outs[1:]:
+                require_exact(f"wide layouts [{label}]", o, outs[0])
+            parts.append(f"{label}: " + ", ".join(times)
+                         + f" (taken: bq {chosen.bq}, lists {chosen.cap})")
+    finally:
+        ct.wide_plan = plan
+    say("  wide centroid_topk layouts (device time, torch.profiler): "
+        + "; ".join(parts))
 
 
 def time_quant_kernels(ops, ref, qdrv, fdrv, q_np, counts) -> list:
@@ -3841,6 +4116,12 @@ def time_quant_kernels(ops, ref, qdrv, fdrv, q_np, counts) -> list:
             median_ms(lambda: ops.centroid_topk(fq, fst.centroids, fvis,
                                                 k=k)),
             median_ms(lambda: ref.centroid_topk(fq, fst.centroids, fvis, k)))
+    for k in WIDE_TIMED_K:
+        wide[f"centroid_topk cache scan k={k}"] = (
+            median_ms(lambda: ops.centroid_topk(fq, fst.cache_vecs,
+                                                fst.cache_valid, k=k)),
+            median_ms(lambda: ref.centroid_topk(fq, fst.cache_vecs,
+                                                fst.cache_valid, k)))
     for k in (10, 64, 192):
         wide[f"posting_scan_topk k={k}"] = (
             median_ms(lambda: ops.posting_scan_topk(
@@ -4140,6 +4421,12 @@ def profile_windows(drv, stream, qdrv, qstream, tdrv, tstream,
         for i, (k, ms, c) in enumerate(rows):
             if i < 6 or any(p in k for p in PORT_KERNELS):
                 say(f"    {ms:9.3f} ms  {c:6d} calls  {k[:70]}")
+        wide = [(k, ms) for k, ms, _ in rows if "_wide" in k]
+        if wide:
+            windows[name]["wide_topk_ms"] = sum(ms for _, ms in wide)
+            say(f"    the wide top-k (k > 32) apart: "
+                f"{sum(ms for _, ms in wide):.3f} ms = " + " + ".join(
+                    f"{short_kernel(k)} {ms:.3f}" for k, ms in wide))
         if name == "tier_stream_step":
             windows[name]["copies"] = cp = copy_overlap(prof)
             say(f"    tier copies by stream (main {cp['main_stream']}): "
@@ -4251,6 +4538,7 @@ def main() -> None:
         kernel_checks(ops, ref, dev, args.seed)
         masked_score_checks(ops, ref, dev, args.seed)
         topk_checks(ops, ref, dev, args.seed)
+        wide_checks(ops, ref, dev, args.seed)
         quant_checks(ops, ref, dev, args.seed)
         gather_checks(ops, ref, dev, args.seed)
         attention_checks(ops, ref, dev, args.seed)
@@ -4271,7 +4559,8 @@ def main() -> None:
             bg_ops=64, quant=quant, data=QUANT_DATA if quant else None)
         launched = ops.launch_counts()
         say(f"  seconds per phase: {json.dumps({k: round(v, 3) for k, v in secs.items()})}")
-        say(f"  launches on the {label} path: {json.dumps(launched)}")
+        say(f"  launches on the {label} path: {json.dumps(launched)}"
+            + wide_text(ops))
         keys = ("inserted", "deleted", "rejected", "bg_split", "bg_merge",
                 "bg_compact", "bg_deferred") + (
                     ("pq_retrains", "pq_generation") if quant else ())
@@ -4310,7 +4599,8 @@ def main() -> None:
         data=QUANT_DATA)
     launched = ops.launch_counts()
     say(f"  seconds per phase: {json.dumps({k: round(v, 3) for k, v in tsecs.items()})}")
-    say(f"  launches on the tier path: {json.dumps(launched)}")
+    say(f"  launches on the tier path: {json.dumps(launched)}"
+        + wide_text(ops))
     for name in PATH_KERNELS["tier"]:
         if launched[name] <= 0:
             fail(f"kernel {name} was never launched on the tier path")
@@ -4399,8 +4689,12 @@ def main() -> None:
     fdrv, fq, _, fstream, _ = paths["float"]
     qdrv, qq, _, qstream, _ = paths["quant"]
     rows = time_kernels(ops, ref, fdrv, fq, counts)
-    time_topk_shapes(ops, topk_inputs(ops, fdrv, fq, qdrv, qq, tdrv, tq),
-                     args.parent_tree)
+    x = topk_inputs(ops, fdrv, fq, qdrv, qq, tdrv, tq)
+    time_topk_shapes(ops, x, args.parent_tree)
+    time_wide_layouts(ops, x)
+    del x
+    if args.parent_tree:
+        parent_prefix(args.parent_tree, args.seed)
     rows += time_quant_kernels(ops, ref, qdrv, fdrv, qq, counts)
     rows += time_gathers(ops, ref, fdrv, qdrv, oracle_in, counts)
     rows.append(time_attention(ops, ref, dev, counts, args.seed))

@@ -35,8 +35,41 @@
 // The ranking, not the product, sets the pace (PERF.md, section 6): each
 // (row, chunk) pair builds its list from nothing, and a list's first
 // tiles take most of its inserts, each a chain of shuffles and votes.
+//
+// Wide path, 32 < k <= 1024.  It runs on main paths: phase 1 past nprobe
+// 32 and every tiered search's cache scan (at rerank_k = 192).  Bounds
+// (3xTF32 at 495 TFLOP/s, or bytes at 3.35 TB/s, the larger): phase 1
+// 256 x 65,504 x 128 as above, 0.026 ms at any k; Q = 32, 0.010 ms
+// (bytes); the cache scan 256 x 4,096 x 128, 0.0016 ms.  Design:
+// - Scoring: the warp path's mainloop and score tile (score_tile.cuh) at a
+//   query tile of 16 or 32 rows (4 warps), so every score ranked is bit
+//   for bit the one the warp path and ops.centroid_score give: a k = 64
+//   answer's first 32 are the k = 32 answer, and each centroid tile comes
+//   from L2 once per query tile.
+// - Selection: a row's list is a run of 64-bit composites (order key <<
+//   32 | index: one unsigned compare orders two (score, index) pairs) in
+//   shared memory.  After each tile a warp's rows take, 32 columns a vote,
+//   the composites below the row's threshold, appended in index order;
+//   where the next tile might not fit, the row is cut to its k best by
+//   warp_select (topk_select.cuh: a radix select over the order keys and
+//   one in-place compaction in array order, so equal scores stay in index
+//   order) and the threshold becomes the k-th.  A chunk's list is its k
+//   best, in index order among ties.
+// - Merging: a second launch, one block a query, takes the chunks' lists
+//   in chunk order through block_select, 5,120 pairs a window behind the
+//   k kept so far, then block_rank_emit, as pq_scan_topk.cu does.
+// - Layout (kernels/centroid_topk.py: wide_plan): one block an SM with
+//   the longest lists that fit (608 composites at 32 rows, 1,280 at 16),
+//   or two an SM (16 rows, 352) where k is small or a chunk is two tiles.
+// What sets the pace: the mainloop at 4 or 8 warps an SM (the warp path
+// runs 16), then the cuts, each a few histogram passes over the list;
+// PERF.md, section 6 has the times of both layouts at each shape.  Not
+// measured: a warp bitonic sort of the list for the cut (about ten times
+// the radix select's compare steps at 600 entries), and the merge inside
+// a cluster (the merge is 2-25% of the wide path's time at the shapes it
+// runs).
 #include "score_tile.cuh"
-#include "topk_common.cuh"
+#include "topk_select.cuh"
 
 namespace {
 
@@ -191,111 +224,259 @@ extern "C" int centroid_topk(const float* q, const float* c,
 }
 
 // ---------------------------------------------------------------------------
-// Wide path, 32 < k <= TOPK_BLOCK_MAX_K: one block per (chunk, query).
-// Each warp scores 32 centroids per round (lanes over the feature axis, one
-// warp reduction per centroid; lane j keeps the j-th score), and the block
-// keeps its chunk's top-k in shared memory (BlockTopK).  A second kernel
-// merges the chunks' lists per query the same way.  The centroid table is
-// read once per query (from L2 when it fits there): this path is not on
-// the search's main path (nprobe <= 32 there) and is kept simple.
+// Wide path, 32 < k <= TOPK_BLOCK_MAX_K (the header note says how).
 // ---------------------------------------------------------------------------
 
-#define CTW_THREADS 256
+namespace {
 
-__global__ void __launch_bounds__(CTW_THREADS)
+using namespace score_tile;
+
+// The partial kernel's shared bytes: the warp path's ring, score tile and
+// norms, then BQ row lists of ``cap`` composites, then a 256-bin
+// histogram a warp.
+template <int BQ>
+constexpr size_t wide_bytes(int cap) {
+  return sizeof(float) * (Split<BQ>::XN + BN) + (size_t)BQ * cap * 8 +
+         (size_t)(Tile<BQ>::NT / 32) * 256 * sizeof(int);
+}
+
+template <int BQ, bool VEC>
+__global__ void __launch_bounds__(Tile<BQ>::NT, 1)
 centroid_topk_wide_partial(const float* __restrict__ q,
                            const float* __restrict__ c,
-                           const uint8_t* __restrict__ vis, int M, int d,
-                           int k, int chunk, int nchunks, int cap,
-                           float* __restrict__ part_s,
-                           int* __restrict__ part_i) {
-  extern __shared__ float smem[];
-  float* qsh = smem;                         // [d]
-  const int qq = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int t = threadIdx.x; t < d; t += blockDim.x)
-    qsh[t] = q[(size_t)qq * d + t];
-  BlockTopK top = block_topk_init(smem + d, cap, k);   // syncs: qsh ready
-  const int m_begin = blockIdx.x * chunk;
+                           const uint8_t* __restrict__ vis, int Q, int M,
+                           int d, int k, int chunk, int n_qtiles, int cap,
+                           uint64_t* __restrict__ part) {
+  using S = Split<BQ>;
+  extern __shared__ __align__(16) float smem[];
+  float* ct = smem + S::CT;
+  float* xn = smem + S::XN;
+  uint64_t* lists = reinterpret_cast<uint64_t*>(smem + S::XN + BN);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int* hist = reinterpret_cast<int*>(lists + (size_t)BQ * cap) + warp * 256;
+  const unsigned below = (1u << lane) - 1u;
+  const int row0 = warp * S::RPW;            // the warp's first row
+  const int q0 = (blockIdx.x % n_qtiles) * BQ;
+  const int ch = blockIdx.x / n_qtiles;
+  const int nchunks = gridDim.x / n_qtiles;
+  const int m_begin = ch * chunk;
   const int m_end = min(M, m_begin + chunk);
-  for (int mt = m_begin; mt < m_end; mt += CTW_THREADS) {
-    const int base = mt + warp * 32;
-    float mine = REPRO_BIG;
-    for (int j = 0; j < 32 && base + j < m_end; ++j) {   // warp-uniform
-      const float* row = c + (size_t)(base + j) * d;
-      float nrm = 0.f, dot = 0.f;
-      for (int t = lane; t < d; t += 32) {
-        const float cv = row[t];
-        nrm += cv * cv;
-        dot += qsh[t] * cv;
-      }
-      nrm = warp_sum(nrm);
-      dot = warp_sum(dot);
-      if (lane == j) mine = vis[base + j] ? nrm - 2.f * dot : REPRO_BIG;
+
+  // each row's list: fill entries, all below thr (none kept yet: ~0)
+  int fill[S::RPW];
+  uint64_t thr[S::RPW];
+#pragma unroll
+  for (int r = 0; r < S::RPW; ++r) {
+    fill[r] = 0;
+    thr[r] = ~0ull;
+  }
+
+  Acc<BQ> acc;
+  float nrm;
+  tile_prologue<BQ, VEC>(smem, q, c, Q, M, d, q0, m_begin);
+  for (int n0 = m_begin; n0 < m_end; n0 += BN) {
+    tile_mainloop<BQ, VEC>(smem, q, c, Q, M, d, q0, n0, acc, nrm);
+    tile_stage<BQ>(ct, xn, acc, nrm);
+    __syncthreads();
+    if (n0 + BN < m_end)
+      tile_prologue<BQ, VEC>(smem, q, c, Q, M, d, q0, n0 + BN);
+
+    // lane takes columns lane, lane + 32, ...: each vote covers 32
+    // centroids in index order, so a row's list grows in index order
+    float cn[4];
+    bool in[4], ok[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int m = n0 + u * 32 + lane;
+      in[u] = m < m_end;
+      ok[u] = in[u] && vis[m] != 0;
+      cn[u] = xn[u * 32 + lane];
     }
-    block_topk_push(top, base + lane < m_end, mine, base + lane);
+#pragma unroll
+    for (int r = 0; r < S::RPW; ++r) {
+      const int row = row0 + r;
+      if (q0 + row >= Q) continue;           // uniform across the warp
+      uint64_t* buf = lists + (size_t)row * cap;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float sc =
+            tile_score(cn[u], ct[row * CTS + u * 32 + lane], ok[u]);
+        const uint64_t e = ((uint64_t)order_key(sc) << 32) |
+                           (uint32_t)(n0 + u * 32 + lane);
+        const bool pass = in[u] && e < thr[r];
+        const unsigned b = __ballot_sync(REPRO_FULL_MASK, pass);
+        if (pass) buf[fill[r] + __popc(b & below)] = e;
+        fill[r] += __popc(b);
+      }
+      if (fill[r] + BN > cap) {              // the next tile might not fit
+        __syncwarp();
+        thr[r] = warp_select(buf, fill[r], k, hist);
+        fill[r] = k;
+      }
+    }
   }
-  block_topk_finish(top);
-  for (int e = threadIdx.x; e < k; e += blockDim.x) {
-    const size_t o = ((size_t)qq * nchunks + blockIdx.x) * k + e;
-    part_s[o] = top.s[e];
-    part_i[o] = top.i[e];
+
+#pragma unroll
+  for (int r = 0; r < S::RPW; ++r) {
+    const int qq = q0 + row0 + r;
+    if (qq >= Q) continue;
+    uint64_t* buf = lists + (size_t)(row0 + r) * cap;
+    __syncwarp();
+    if (fill[r] > k) {
+      warp_select(buf, fill[r], k, hist);
+      fill[r] = k;
+    }
+    // min(k, chunk's centroids) composites, in index order among ties
+    uint64_t* dst = part + ((size_t)qq * nchunks + ch) * k;
+    for (int e = lane; e < fill[r]; e += 32) dst[e] = buf[e];
   }
 }
 
-// One block per query: the top-k of its nparts partial lists (empty
-// entries skipped; the lists hold disjoint keys).
-__global__ void __launch_bounds__(CTW_THREADS)
-topk_merge_parts_wide(const float* __restrict__ part_s,
-                      const int* __restrict__ part_i, int nparts, int k,
-                      int cap, float* __restrict__ out_s,
-                      int* __restrict__ out_i) {
-  extern __shared__ float smem[];
+// The merge's shared layout for n candidates and k picks: the pairs, their
+// order keys, the k picked and their composites, the selection's scratch
+// (16-byte aligned regions).
+struct MergeLayout {
+  size_t u, uk, sel, rk, scratch, bytes;
+};
+
+__host__ __device__ inline size_t a16(size_t bytes) {
+  return (bytes + 15) & ~(size_t)15;
+}
+
+__host__ __device__ inline MergeLayout merge_layout(int n, int k) {
+  MergeLayout L;
+  L.u = 0;
+  L.uk = L.u + a16((size_t)n * 8);
+  L.sel = L.uk + a16((size_t)n * 4);
+  L.rk = L.sel + a16((size_t)k * 8);
+  L.scratch = L.rk + a16((size_t)k * 8);
+  L.bytes = L.scratch + a16(SEL_SCRATCH_INTS * 4);
+  return L;
+}
+
+// The candidates of a query's chunks: every chunk but the last holds
+// min(k, chunk) of them.
+__host__ __device__ inline int merge_count(int M, int k, int chunk,
+                                           int nchunks) {
+  const int last = M - (nchunks - 1) * chunk;
+  return (nchunks - 1) * (k < chunk ? k : chunk) + (k < last ? k : last);
+}
+
+// The merge's pair buffer: block_select's n at most.
+#define CTW_MERGE_N (SEL_MAX_ROUNDS * SEL_THREADS)
+
+// One block per query: the k best of its chunks' lists, sorted.  Each
+// chunk's list is in index order (appended so, compacted in array order),
+// and the lists go in chunk order, so the candidates stand in index order.
+// They go through block_select in windows of CTW_MERGE_N - k behind the k
+// kept so far (lower indices than any new one), as pq_scan_topk.cu's
+// chunks do, so equal scores stay in index order as block_select needs.
+__global__ void __launch_bounds__(SEL_THREADS)
+centroid_topk_wide_merge(const uint64_t* __restrict__ part, int M, int k,
+                         int chunk, int nchunks, float* __restrict__ out_s,
+                         int* __restrict__ out_i) {
+  extern __shared__ __align__(16) unsigned char msmem[];
+  const int n = merge_count(M, k, chunk, nchunks);
+  const int nb = min(n, CTW_MERGE_N);
+  const MergeLayout L = merge_layout(nb, k);
+  float2* u = reinterpret_cast<float2*>(msmem + L.u);
+  uint32_t* uk = reinterpret_cast<uint32_t*>(msmem + L.uk);
+  float2* sel = reinterpret_cast<float2*>(msmem + L.sel);
+  uint64_t* rk = reinterpret_cast<uint64_t*>(msmem + L.rk);
+  int* scratch = reinterpret_cast<int*>(msmem + L.scratch);
   const int qq = blockIdx.x;
-  BlockTopK top = block_topk_init(smem, cap, k);
-  const int total = nparts * k;
-  for (int base = 0; base < total; base += blockDim.x) {
-    const int e = base + threadIdx.x;
-    const bool in = e < total;
-    const float s = in ? part_s[(size_t)qq * total + e] : CUDART_INF_F;
-    const int i = in ? part_i[(size_t)qq * total + e] : INT_MAX;
-    block_topk_push(top, in && i != INT_MAX, s, i);
-  }
-  block_topk_finish(top);
-  for (int e = threadIdx.x; e < k; e += blockDim.x) {
-    out_s[(size_t)qq * k + e] = top.s[e];
-    out_i[(size_t)qq * k + e] = top.i[e];
-  }
+  const int per = min(k, chunk);
+  const uint64_t* src = part + (size_t)qq * nchunks * k;
+  int nrun = 0;                    // pairs kept from earlier windows, in sel
+  int w0 = 0;                      // candidates taken so far
+  do {                             // block-uniform trips
+    const int cnt = min(nb - nrun, n - w0);
+    for (int i = threadIdx.x; i < nrun; i += SEL_THREADS) {
+      u[i] = sel[i];
+      uk[i] = (uint32_t)(rk[i] >> 32);
+    }
+    for (int i = threadIdx.x; i < cnt; i += SEL_THREADS) {
+      const int at = w0 + i;
+      const int ch = at / per;
+      const uint64_t e = src[(size_t)ch * k + (at - ch * per)];
+      const uint32_t key = (uint32_t)(e >> 32);
+      u[nrun + i] = sel_pair(key_score(key), (int)(uint32_t)e);
+      uk[nrun + i] = key;
+    }
+    __syncthreads();
+    const int m = nrun + cnt;
+    nrun = min(k, m);
+    block_select(u, uk, m, nrun, sel, rk, scratch);
+    w0 += cnt;
+  } while (w0 < n);
+  block_rank_emit(sel, rk, nrun, [=](int r, float s, int key, uint64_t) {
+    out_s[(size_t)qq * k + r] = s;
+    out_i[(size_t)qq * k + r] = key;
+  });
 }
 
-static int set_smem(const void* fn, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+template <int BQ, bool VEC>
+int launch_wide(const float* q, const float* c, const uint8_t* vis, int Q,
+                int M, int d, int k, int chunk, int nchunks, int cap,
+                uint64_t* part, cudaStream_t st) {
+  static unsigned long long opted = 0;
+  const int err = allow_smem(
+      (const void*)centroid_topk_wide_partial<BQ, VEC>, opted);
+  if (err) return err;
+  const int n_qtiles = (Q + BQ - 1) / BQ;
+  const long long blocks = (long long)n_qtiles * nchunks;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  centroid_topk_wide_partial<BQ, VEC>
+      <<<(unsigned)blocks, Tile<BQ>::NT, wide_bytes<BQ>(cap), st>>>(
+          q, c, vis, Q, M, d, k, chunk, n_qtiles, cap, part);
+  return (int)cudaGetLastError();
 }
 
-// As centroid_topk, for 1 <= k <= min(TOPK_BLOCK_MAX_K, M); Q <= 65535.
-// part_s/part_i: (Q, nchunks, k); ``chunk`` * nchunks >= M.
+}  // namespace
+
+// As centroid_topk, for 1 <= k <= min(TOPK_BLOCK_MAX_K, M) (the wrapper
+// takes it past 32).  bq: the query tile, 16 or 32 rows; ``chunk`` a
+// multiple of 128 with nchunks chunks covering M, none empty; ``cap`` the
+// composites a row's list holds, even and >= k + 128; part (Q, nchunks, k)
+// uint64 scratch.  kernels/centroid_topk.py: wide_plan sizes them; the
+// partial kernel and the merge must each fit TOPK_SMEM_MAX bytes.
 extern "C" int centroid_topk_wide(const float* q, const float* c,
                                   const uint8_t* vis, int Q, int M, int d,
-                                  int k, int chunk, int nchunks,
-                                  float* part_s, int* part_i, float* out_s,
+                                  int k, int bq, int chunk, int nchunks,
+                                  int cap, void* part, float* out_s,
                                   int* out_i, void* stream) {
-  if (k < 1 || k > TOPK_BLOCK_MAX_K) return (int)cudaErrorInvalidValue;
-  const int cap = block_topk_cap(k, CTW_THREADS, 1024);
-  const size_t smem1 = sizeof(float) * d + block_topk_bytes(cap);
-  const size_t smem2 = block_topk_bytes(cap);
-  int err = set_smem((const void*)centroid_topk_wide_partial, smem1);
-  if (err) return err;
-  err = set_smem((const void*)topk_merge_parts_wide, smem2);
-  if (err) return err;
+  if (k < 1 || k > TOPK_BLOCK_MAX_K || k > M || chunk % BN != 0 ||
+      nchunks < 1 || (long long)(nchunks - 1) * chunk >= M ||
+      (long long)nchunks * chunk < M || cap < k + BN || cap % 2 != 0 ||
+      (bq != 16 && bq != 32))
+    return (int)cudaErrorInvalidValue;
+  const int n = merge_count(M, k, chunk, nchunks);
+  const int nb = n < CTW_MERGE_N ? n : CTW_MERGE_N;
+  const size_t bytes = bq == 16 ? wide_bytes<16>(cap) : wide_bytes<32>(cap);
+  if (bytes > TOPK_SMEM_MAX || merge_layout(nb, k).bytes > TOPK_SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (Q <= 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
-  centroid_topk_wide_partial<<<dim3(nchunks, Q), CTW_THREADS, smem1, st>>>(
-      q, c, vis, M, d, k, chunk, nchunks, cap, part_s, part_i);
-  err = (int)cudaGetLastError();
+  uint64_t* pt = (uint64_t*)part;
+  const bool vec = d % 4 == 0 && (uintptr_t)q % 16 == 0 &&
+                   (uintptr_t)c % 16 == 0;
+  int err;
+  if (bq == 16)
+    err = vec ? launch_wide<16, true>(q, c, vis, Q, M, d, k, chunk, nchunks,
+                                      cap, pt, st)
+              : launch_wide<16, false>(q, c, vis, Q, M, d, k, chunk, nchunks,
+                                       cap, pt, st);
+  else
+    err = vec ? launch_wide<32, true>(q, c, vis, Q, M, d, k, chunk, nchunks,
+                                      cap, pt, st)
+              : launch_wide<32, false>(q, c, vis, Q, M, d, k, chunk, nchunks,
+                                       cap, pt, st);
   if (err) return err;
-  topk_merge_parts_wide<<<Q, CTW_THREADS, smem2, st>>>(
-      part_s, part_i, nchunks, k, cap, out_s, out_i);
+  static unsigned long long opted = 0;
+  err = allow_smem((const void*)centroid_topk_wide_merge, opted);
+  if (err) return err;
+  centroid_topk_wide_merge<<<Q, SEL_THREADS, merge_layout(nb, k).bytes,
+                             st>>>(pt, M, k, chunk, nchunks, out_s, out_i);
   return (int)cudaGetLastError();
 }

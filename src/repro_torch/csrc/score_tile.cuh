@@ -69,11 +69,11 @@ __device__ __forceinline__ void load_slice(float* dst, const float* src,
   }
 }
 
-// The warp layout of a BQ x BN tile: BQ = 32 takes 4 warps, a wider query
-// tile 8 (two warp rows).
+// The warp layout of a BQ x BN tile: BQ = 16 or 32 takes 4 warps (one warp
+// row), a wider query tile 8 (two warp rows).
 template <int BQ>
 struct Tile {
-  static constexpr int WARPS_Q = BQ == 32 ? 1 : 2;
+  static constexpr int WARPS_Q = BQ <= 32 ? 1 : 2;
   static constexpr int WARPS_N = 4;
   static constexpr int NT = 32 * WARPS_Q * WARPS_N;    // threads
   static constexpr int MT = BQ / WARPS_Q / 16;         // m16 tiles a warp

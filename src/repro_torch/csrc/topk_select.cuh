@@ -1,6 +1,9 @@
-// Exact block-wide selection for the quant plane's phase-2 kernels
-// (pq_scan_topk.cu, rerank_topk.cu): the kk smallest of n (score, key)
-// pairs in lexicographic order, so equal scores rank by the lower key.
+// Exact selection for the top-k kernels past one warp (pq_scan_topk.cu,
+// rerank_topk.cu, and the wide paths of centroid_topk.cu and
+// posting_scan_topk.cu): the kk smallest of n (score, key) pairs in
+// lexicographic order, so equal scores rank by the lower key.  Block-wide
+// (block_select, block_rank_emit) below; warp_select at the end runs the
+// same rule on one warp's list of 64-bit composites.
 //
 // The pairs sit in shared memory as float2 (score, key as int bits), each
 // with its score's order key beside it.  The selection is one radix select
@@ -51,6 +54,13 @@ __device__ __forceinline__ uint32_t order_key(float s) {
   uint32_t b = __float_as_uint(s);
   if ((b << 1) == 0) b = 0;                  // -0.0 -> +0.0
   return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// The score whose order key is ``key`` (bit for bit, but for -0.0, which
+// order_key makes +0.0; the score kernels never give -0.0: s = n - 2 p with
+// n >= +0 rounds an exact zero to +0.0).
+__device__ __forceinline__ float key_score(uint32_t key) {
+  return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
 }
 
 __device__ __forceinline__ float2 sel_pair(float s, int key) {
@@ -298,4 +308,112 @@ __device__ inline void block_rank_emit(float2* sel, uint64_t* rk, int kk,
     const float2 p = sel[i];
     emit(rank, p.x, __float_as_int(p.y), e);
   }
+}
+
+// One warp's selection, in place: of the n unique composites buf[0, n)
+// (order key << 32 | key), keep the kk smallest in buf[0, kk), in array
+// order, and return the largest kept.  1 <= kk <= n.  All 32 lanes call
+// it; ``hist`` is 256 ints of shared memory, 16-byte aligned, the warp's
+// own.  The rule is block_select's: a radix select over the order keys
+// from the range the kk-th smallest lies in (8-bit digits, a histogram by
+// shared atomics, the digit found by one warp scan), then the entries
+// below the threshold and the first krem at it, in array order.  Where the
+// entries of equal order key stand in ascending key order in the array
+// (callers append in key order and this keeps array order), those are the
+// kk smallest composites.  The compaction writes each kept entry at or
+// below its own index, so one pass in array order can work in place.
+__device__ inline uint64_t warp_select(uint64_t* buf, int n, int kk,
+                                       int* hist) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const uint32_t big = order_key(REPRO_BIG / 2);
+  uint32_t kmin = ~0u, kmax = 0u, kreal = 0u, nreal = 0u;
+  for (int i = lane; i < n; i += 32) {
+    const uint32_t key = (uint32_t)(buf[i] >> 32);
+    kmin = min(kmin, key);
+    kmax = max(kmax, key);
+    if (key < big) {
+      kreal = max(kreal, key);
+      ++nreal;
+    }
+  }
+  kmin = __reduce_min_sync(REPRO_FULL_MASK, kmin);
+  kmax = __reduce_max_sync(REPRO_FULL_MASK, kmax);
+  kreal = __reduce_max_sync(REPRO_FULL_MASK, kreal);
+  nreal = __reduce_add_sync(REPRO_FULL_MASK, nreal);
+  const uint32_t hi = nreal >= (uint32_t)kk ? kreal : kmax;
+  int top = 32 - __clz(kmin ^ hi);           // bits still to decide
+  uint32_t mask = top == 32 ? 0u : ~0u << top;
+  uint32_t prefix = kmin & mask;
+  int krem = kk;
+  int4* h4 = reinterpret_cast<int4*>(hist) + 2 * lane;  // bins 8 lane + 0..7
+  while (top > 0) {
+    const int width = min(8, top);
+    const int shift = top - width;
+    const uint32_t dmask = (1u << width) - 1u;
+    h4[0] = h4[1] = make_int4(0, 0, 0, 0);
+    __syncwarp();
+    for (int i = lane; i < n; i += 32) {
+      const uint32_t key = (uint32_t)(buf[i] >> 32);
+      if (key <= hi && (key & mask) == prefix)
+        atomicAdd(&hist[(key >> shift) & dmask], 1);
+    }
+    __syncwarp();
+    const int4 a = h4[0], b = h4[1];
+    const int h[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    int sum = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sum += h[i];
+    int incl = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(REPRO_FULL_MASK, incl, o);
+      if (lane >= o) incl += y;
+    }
+    int ex = incl - sum, bin = 0, need = 0, whole = 0;
+    if (ex < krem && krem <= incl) {         // one lane: the bin is here
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (ex < krem && krem <= ex + h[i]) {
+          bin = 8 * lane + i;
+          need = krem - ex;
+          whole = h[i] == need;              // the whole bin is taken
+        }
+        ex += h[i];
+      }
+    }
+    const int src = __ffs(__ballot_sync(REPRO_FULL_MASK, need > 0)) - 1;
+    bin = __shfl_sync(REPRO_FULL_MASK, bin, src);
+    krem = __shfl_sync(REPRO_FULL_MASK, need, src);
+    whole = __shfl_sync(REPRO_FULL_MASK, whole, src);
+    prefix |= (uint32_t)bin << shift;
+    mask |= dmask << shift;
+    top = shift;
+    if (whole) break;
+  }
+  int out = 0, at = 0;
+  uint64_t last = 0;
+  for (int i0 = 0; i0 < n; i0 += 32) {       // warp-uniform trips
+    const int i = i0 + lane;
+    const uint64_t e = i < n ? buf[i] : ~0ull;
+    const uint32_t key = (uint32_t)(e >> 32);
+    const bool lt = i < n && (key & mask) < prefix;
+    const bool eq = i < n && (key & mask) == prefix && key <= hi;
+    const unsigned be = __ballot_sync(REPRO_FULL_MASK, eq);
+    const bool take = lt || (eq && at + __popc(be & below) < krem);
+    const unsigned bt = __ballot_sync(REPRO_FULL_MASK, take);
+    if (take) {                  // every lane read its entry before the votes
+      buf[out + __popc(bt & below)] = e;
+      last = e > last ? e : last;
+    }
+    out += __popc(bt);
+    at += __popc(be);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const uint64_t y = __shfl_xor_sync(REPRO_FULL_MASK, last, o);
+    last = y > last ? y : last;
+  }
+  __syncwarp();
+  return last;
 }

@@ -112,22 +112,23 @@ def posting_scan_topk(q: torch.Tensor, vectors: torch.Tensor,
     """Fused phase 2: probe scan + top-k.  q (Q, d); vectors (M, C, d);
     slot_valid (M, C) bool; vis (M,) bool; probe (Q, P); optional
     per-(query, probe) mask qp_ok.  Returns (scores (Q, k) ascending,
-    cand (Q, k) int32 flat slot index ``probe*C + c``)."""
+    cand (Q, k) int32 flat slot index ``probe*C + c``).  On the card the
+    kernel applies both masks and ``qp_ok`` itself: no (M, C) mask or (Q,
+    P) ones are built per call."""
     Q = q.shape[0]
     C = vectors.shape[1]
     P = probe.shape[1]
     if not 0 < k <= P * C:
         raise ValueError(f"posting_scan_topk: k={k} outside [1, P*C]")
-    on_card = _on_card(q, vectors, slot_valid, vis, probe, qp_ok)
+    if _on_card(q, vectors, slot_valid, vis, probe, qp_ok):
+        return _ps.posting_scan_topk(
+            _f32(q), _f32(vectors), slot_valid.contiguous(), vis.contiguous(),
+            None if qp_ok is None else _i32(qp_ok), _i32(probe), k)
     valid = slot_valid & vis[:, None]
     if qp_ok is None:
         qp_ok = torch.ones((Q, P), dtype=torch.int32, device=q.device)
-    qp_ok = qp_ok.to(torch.int32)
-    if on_card:
-        return _ps.posting_scan_topk(
-            _f32(q), _f32(vectors), valid.contiguous(), qp_ok.contiguous(),
-            probe.to(torch.int32).contiguous(), k)
-    return ref.posting_scan_topk(q, vectors, valid, qp_ok, probe, k)
+    return ref.posting_scan_topk(q, vectors, valid, qp_ok.to(torch.int32),
+                                 probe, k)
 
 
 def kmeans_assign(points: torch.Tensor, centroids: torch.Tensor,
@@ -257,12 +258,32 @@ KERNELS = {
 }
 
 
+#: kernel name -> (module, counter attribute) of its wide path (k > 32),
+#: counted apart from the warp path's launches and added to them in
+#: :func:`launch_counts`
+WIDE = {
+    "centroid_topk": (_ct, "launches_wide"),
+    "posting_scan_topk": (_ps, "launches_topk_wide"),
+}
+
+
 def launch_counts() -> dict:
-    """Kernel name -> launches since the last reset."""
-    return {name: getattr(mod, attr)
-            for name, (mod, attr, _, _) in KERNELS.items()}
+    """Kernel name -> launches since the last reset (a top-k kernel's
+    warp and wide paths together)."""
+    counts = {name: getattr(mod, attr)
+              for name, (mod, attr, _, _) in KERNELS.items()}
+    for name, (mod, attr) in WIDE.items():
+        counts[name] += getattr(mod, attr)
+    return counts
+
+
+def wide_launch_counts() -> dict:
+    """Kernel name -> launches of its wide path since the last reset."""
+    return {name: getattr(mod, attr) for name, (mod, attr) in WIDE.items()}
 
 
 def reset_launch_counts() -> None:
     for mod, attr, _, _ in KERNELS.values():
+        setattr(mod, attr, 0)
+    for mod, attr in WIDE.values():
         setattr(mod, attr, 0)

@@ -15,7 +15,7 @@ tests/test_torch_pq.py.  The launch sizing of the split top-k kernels
 is plain Python and is tested here.  The CUDA kernels themselves run only
 on a card:
 the ``cuda``-marked tests compare each of the seven kernels, and the
-block-wide top-k past k = 32, with its plain version and skip without
+wide top-k past k = 32, with its plain version and skip without
 one (``chip_smoke.py`` runs the same checks on the card).
 """
 import numpy as np
@@ -173,16 +173,18 @@ H100_SMS = 132
 @pytest.mark.parametrize("M", [1, 127, 300, 4096, 65504])
 def test_split_centroids_covers_each_centroid_once(Q, M, wide):
     from repro_torch.kernels import centroid_topk as ct
-    chunk, nchunks = ct.split_centroids(Q, M, wide)
-    step = 256 if wide else 128             # whole tiles or rounds a chunk
-    assert chunk % step == 0 and nchunks >= 1
+    chunk, nchunks = (ct.wide_plan(Q, M, ct.WARP_K + 1)[1:3] if wide
+                      else ct.split_centroids(Q, M))
+    assert chunk % 128 == 0 and nchunks >= 1    # whole tiles a chunk
     seen = np.zeros(M, np.int64)
     for i in range(nchunks):
         lo, hi = i * chunk, min(M, (i + 1) * chunk)
         assert hi > lo                       # no empty chunk
         seen[lo:hi] += 1
     assert (seen == 1).all()
-    q_tiles = Q if wide else -(-Q // ct.query_tile(Q))
+    tile = ct.wide_plan(Q, M, ct.WARP_K + 1).bq if wide else \
+        ct.query_tile(Q)
+    q_tiles = -(-Q // tile)
     assert q_tiles * nchunks < 2 ** 31       # the 1-D grid's limit
     assert ct.query_tile(Q) == (32 if Q <= 32 else 64)
 
@@ -219,6 +221,199 @@ def test_split_probes_gives_two_blocks_per_sm(Q):
     from repro_torch.kernels import posting_scan as ps
     _, S = ps.split_probes(Q, 32)
     assert 1.5 * H100_SMS <= Q * S <= 2.5 * H100_SMS
+
+
+WIDE_K = [33, 64, 192, 264, 1023, 1024]
+
+
+@pytest.mark.parametrize("k", WIDE_K)
+@pytest.mark.parametrize("Q", [1, 31, 32, 33, 256, 100000])
+@pytest.mark.parametrize("M", [1024, 1100, 4096, 65504])
+def test_centroid_wide_plan_covers_and_fits(Q, M, k):
+    """The wide path's launch: whole-tile chunks covering every centroid
+    once, none empty; both kernels within a block's shared memory; lists
+    that hold k plus one tile; chunks of at least k centroids where M
+    allows; the 1-D grid within its limit."""
+    from repro_torch.kernels import centroid_topk as ct
+    plan = ct.wide_plan(Q, M, k)
+    assert plan.bq in (16, 32) and plan.chunk % 128 == 0
+    seen = np.zeros(M, np.int64)
+    for i in range(plan.nchunks):
+        lo, hi = i * plan.chunk, min(M, (i + 1) * plan.chunk)
+        assert hi > lo
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+    assert plan.cap >= k + 128 and plan.cap % 2 == 0
+    assert plan.smem <= ct.SMEM_MAX and plan.merge_smem <= ct.SMEM_MAX
+    assert plan.chunk >= k or plan.nchunks == 1
+    assert -(-Q // plan.bq) * plan.nchunks < 2 ** 31
+    if Q <= 32:
+        assert plan.bq == 16                 # more blocks at a small batch
+
+
+def test_centroid_wide_plan_at_every_k():
+    """Every k of the wide path at the main shapes fits (the partial
+    kernel's bytes do not depend on d: the ring stages 32-deep slices)."""
+    from repro_torch.kernels import centroid_topk as ct
+    for k in range(33, 1025):
+        for Q, M in ((256, 65504), (32, 65504), (256, 4096), (1, 1100)):
+            plan = ct.wide_plan(Q, M, k)
+            assert plan.smem <= ct.SMEM_MAX >= plan.merge_smem
+            assert plan.cap >= k + 128
+            assert plan.chunk >= k or plan.nchunks == 1
+    # phase 1 past nprobe 32 (one block an SM at k = 192, two at k = 64)
+    # and the tiered search's cache scan at rerank_k (two blocks an SM)
+    assert ct.wide_plan(256, 65504, 192)[:4] == (32, 4096, 16, 608)
+    assert ct.wide_plan(256, 65504, 64)[:4] == (16, 4096, 16, 352)
+    assert ct.wide_plan(256, 4096, 192)[:4] == (16, 256, 16, 352)
+    assert ct.wide_plan(32, 65504, 192)[:4] == (16, 1024, 64, 1280)
+    pair = ct.wide_plan(256, 65504, 64).smem
+    assert 2 * (pair + 1024) <= 233472       # two blocks an SM
+
+
+def _scan_walk(plan, P, C, d, k):
+    """The wide scan kernel's walk: each block's probes, unit by unit, in
+    batches of at most 256 rows; the buffer selects (keeps k) when a batch
+    would overflow it.  Returns the positions each block scores, in order;
+    asserts the buffer never overflows."""
+    from repro_torch.kernels import posting_scan as ps
+    R = ps.unit_rows(C, d)
+    blocks = []
+    for b in range(plan.S):
+        pos, fill = [], 0
+        for p in range(b * plan.group, min(P, (b + 1) * plan.group)):
+            for r0 in range(0, C, R):
+                rows = min(R, C - r0)
+                for rb in range(0, rows, 256):
+                    nrow = min(256, rows - rb)
+                    if fill + nrow > plan.nb:
+                        assert fill > k
+                        fill = k
+                    fill += nrow
+                    assert fill <= plan.nb
+                    pos += [p * C + r0 + r for r in range(rb, rb + nrow)]
+        blocks.append(pos)
+    return blocks
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("d", [1, 3, 16, 100, 128, 256, 16384, 20000])
+@pytest.mark.parametrize("P,C", [(1, 1024), (5, 33), (32, 96), (64, 257)])
+def test_posting_wide_plan_covers_and_fits(P, C, d, aligned):
+    """The wide scan's launch at k = 33 .. 1024: every slot scored once,
+    in position order within a block; the layout within a block's shared
+    memory; at most 8 blocks a query (one cluster) and 5,120 pairs a
+    buffer; staged tiles wherever the warp path's rows fit (d <= 16,384),
+    by bulk copy where d % 4 == 0 and the rows are aligned."""
+    from repro_torch.kernels import posting_scan as ps
+    for Q in (1, 32, 256):
+        for k in range(33, min(1024, P * C) + 1, 37):
+            plan = ps.wide_scan_plan(Q, P, C, d, k, aligned)
+            assert plan.smem <= ps.SMEM_MAX
+            assert plan.smem == ps.wide_scan_bytes(plan.mode, d, C, plan.nb,
+                                                   k, plan.S)
+            assert 1 <= plan.S <= ps.MAX_SPLIT and plan.nb <= 5120
+            assert plan.nb >= min(k + 256, plan.group * C)
+            assert plan.S == -(-P // plan.group)
+            if Q >= 67:
+                assert plan.S == 1
+            if d <= ps.MAX_D:
+                assert plan.mode == (ps.MODE_BULK if d % 4 == 0 and aligned
+                                     else ps.MODE_COPY)
+            else:
+                assert plan.mode == ps.MODE_DIRECT
+            if k in (33, 1024 - 1024 % 37) or P * C <= 1100:
+                pos = _scan_walk(plan, P, C, d, k)
+                flat = [x for b in pos for x in b]
+                assert flat == list(range(P * C))
+
+
+def test_posting_wide_plan_at_the_main_shapes():
+    """nprobe = 32 tiles of 96 x 128: one block a query at Q = 256, each
+    buffering all 3,072 slots (one selection); four a query at Q = 32."""
+    from repro_torch.kernels import posting_scan as ps
+    for k in (64, 192):
+        plan = ps.wide_scan_plan(256, 32, 96, 128, k)
+        assert (plan.mode, plan.group, plan.S, plan.nb) == \
+            (ps.MODE_BULK, 32, 1, 3072)
+        plan = ps.wide_scan_plan(32, 32, 96, 128, k)
+        assert (plan.group, plan.S, plan.nb) == (8, 4, 768)
+
+
+def _warp_select(comp, kk):
+    """warp_select on composites: block_select's rule over their order
+    keys, the kept entries in array order; returns them and the largest."""
+    s = (comp >> np.uint64(32)).astype(np.uint32)
+    keep_s, keep_i = _block_select(_key_score(s), np.arange(len(comp)), kk)
+    idx = np.sort(keep_i)
+    return comp[idx], comp[idx].max()
+
+
+def _key_score(key):
+    """key_score: the float whose order key is ``key``."""
+    key = np.asarray(key, np.uint32).astype(np.int64)
+    b = np.where(key & 0x80000000, key & 0x7FFFFFFF, ~key & 0xFFFFFFFF)
+    return b.astype(np.uint32).view(np.float32)
+
+
+def _emulate_centroid_wide(row, k, chunk, cap, window=5120):
+    """The wide centroid kernel on one query's scores (index = position):
+    each chunk's list grows a 128-wide tile at a time by the composites
+    below its threshold and is cut to k (warp_select) when the next tile
+    might not fit; the chunks' lists, in chunk order, then go through
+    block_select, ``window`` at a time behind the k kept, and the rank
+    sort."""
+    parts = []
+    idx = np.arange(len(row), dtype=np.uint64)
+    comp = (_order_key(row).astype(np.uint64) << np.uint64(32)) | idx
+    for c0 in range(0, len(row), chunk):
+        buf, thr = comp[:0], np.uint64(2 ** 64 - 1)
+        for n0 in range(c0, min(len(row), c0 + chunk), 128):
+            tile = comp[n0:min(len(row), c0 + chunk, n0 + 128)]
+            buf = np.concatenate([buf, tile[tile < thr]])
+            if len(buf) + 128 > cap:
+                buf, thr = _warp_select(buf, k)
+        if len(buf) > k:
+            buf, _ = _warp_select(buf, k)
+        parts.append(buf)
+    allc = np.concatenate(parts)
+    assert (np.diff(allc & np.uint64(0xFFFFFFFF)) > 0).all()  # index order
+    s = _key_score((allc >> np.uint64(32)).astype(np.uint32))
+    key = (allc & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    nb = min(len(s), window)
+    run_s, run_k = s[:0], key[:0]
+    w0 = 0
+    while w0 < len(s):                       # the merge's windows
+        cnt = min(nb - len(run_s), len(s) - w0)
+        run_s, run_k = _block_select(
+            np.concatenate([run_s, s[w0:w0 + cnt]]),
+            np.concatenate([run_k, key[w0:w0 + cnt]]),
+            min(k, len(run_s) + cnt))
+        w0 += cnt
+    return _rank_emit(run_s, run_k)
+
+
+@pytest.mark.parametrize("kind", ["ties", "big", "normal"])
+@pytest.mark.parametrize("chunk,cap,window", [
+    (4096, 608, 5120), (256, 608, 5120), (1024, 192, 5120),
+    (384, 1280, 5120), (256, 352, 700)])
+@pytest.mark.parametrize("k", [33, 64, 192, 500])
+def test_wide_centroid_selection_matches_stable_topk(k, chunk, cap, window,
+                                                     kind):
+    """The wide centroid path's selection (threshold filter, in-place cuts,
+    chunk lists merged in order, in windows behind the k kept) gives the
+    stable top-k: ties lowest index first, -0.0 equal to +0.0, BIG below
+    +inf."""
+    cap = max(cap, k + 128)
+    window = max(window, k + 256)
+    rng = np.random.default_rng(k + chunk + cap + len(kind))
+    row = _tie_row(rng, 3000, kind)
+    got_s, got_k = _emulate_centroid_wide(row, k, chunk, cap, window)
+    want_s, want_k = ref.stable_topk(torch.from_numpy(row)[None], k)
+    np.testing.assert_array_equal(got_k, want_k[0].numpy())
+    np.testing.assert_array_equal(got_s.view(np.uint32) & 0x7FFFFFFF,
+                                  want_s[0].numpy().view(np.uint32)
+                                  & 0x7FFFFFFF)
 
 
 # ---------------------------------------------------------------------------
@@ -576,9 +771,10 @@ def _wide_inputs(dev, Q=37, M=300, G=40, C=33, d=100, P=8):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [33, 64, 192, 264])
 def test_card_topk_kernels_answer_past_a_warp(cuda_dev, k):
-    """Past 32 the top-k kernels keep the list block-wide in shared
-    memory; ids, scores and tie order equal the plain version's (integer
-    data: exact), and search answers at k and nprobe past 32."""
+    """Past 32 the top-k kernels take their wide paths (lists in shared
+    memory, an exact selection); ids, scores and tie order equal the
+    plain version's (integer data: exact), and search answers at k and
+    nprobe past 32."""
     from repro_torch.api import make_index
     from repro_torch.core.types import UBISConfig
     x = _wide_inputs(cuda_dev)
@@ -609,8 +805,65 @@ def test_card_topk_kernels_answer_past_a_warp(cuda_dev, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [64, 192])
+def test_card_wide_topk_prefix_is_the_warp_answer(cuda_dev, k):
+    """On real-valued data the wide paths score with the warp paths'
+    arithmetic: a k answer's first 32 (``centroid_topk``) or 10
+    (``posting_scan_topk``) are the narrower answer, ids and score bits,
+    and the centroid scores are ``centroid_score``'s at the picks."""
+    rng = np.random.default_rng(k)
+    normal = lambda *s: torch.as_tensor(                      # noqa: E731
+        rng.standard_normal(s, np.float32), device=cuda_dev)
+    q, c, tiles = normal(37, 128), normal(3000, 128), normal(60, 96, 128)
+    vis = torch.as_tensor(rng.random(3000) < 0.7, device=cuda_dev)
+    ws, wi = ops.centroid_topk(q, c, vis, k=32)
+    gs, gi = _counted("centroid_topk",
+                      lambda: ops.centroid_topk(q, c, vis, k=k))
+    assert ops.wide_launch_counts()["centroid_topk"] >= 1
+    assert torch.equal(gi[:, :32], wi)
+    assert torch.equal(gs[:, :32].view(torch.int32), ws.view(torch.int32))
+    full = ops.centroid_score(q, c, vis)
+    assert torch.equal(torch.gather(full, 1, gi.long()).view(torch.int32),
+                       gs.view(torch.int32))
+    valid = torch.as_tensor(rng.random((60, 96)) < 0.9, device=cuda_dev)
+    pvis = torch.ones(60, dtype=torch.bool, device=cuda_dev)
+    probe = torch.as_tensor(rng.integers(0, 60, (37, 32)).astype(np.int32),
+                            device=cuda_dev)
+    ws, wi = ops.posting_scan_topk(q, tiles, valid, pvis, probe, k=10)
+    gs, gi = _counted("posting_scan_topk", lambda: ops.posting_scan_topk(
+        q, tiles, valid, pvis, probe, k=k))
+    assert torch.equal(gi[:, :10], wi)
+    assert torch.equal(gs[:, :10].view(torch.int32), ws.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [1, 33])
+def test_card_wide_topk_at_k_1024_odd_d_and_c(cuda_dev, Q):
+    """k = 1024 at d = 99 and C = 33 (the 4-byte copies, units of odd
+    rows; the scan split over a cluster at Q = 1): the plain version's
+    ids, scores and tie order on integer data."""
+    rng = np.random.default_rng(Q)
+    ints = lambda *s: torch.as_tensor(                        # noqa: E731
+        rng.integers(-2, 3, s).astype(np.float32), device=cuda_dev)
+    q, c, tiles = ints(Q, 99), ints(1100, 99), ints(40, 33, 99)
+    vis = torch.as_tensor(rng.random(1100) < 0.7, device=cuda_dev)
+    got = ops.centroid_topk(q, c, vis, k=1024)
+    want = ref.centroid_topk(q, c, vis, 1024)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    valid = torch.as_tensor(rng.random((40, 33)) < 0.7, device=cuda_dev)
+    pvis = torch.as_tensor(rng.random(40) < 0.9, device=cuda_dev)
+    probe = torch.as_tensor(rng.integers(0, 40, (Q, 32)).astype(np.int32),
+                            device=cuda_dev)
+    got = ops.posting_scan_topk(q, tiles, valid, pvis, probe, k=1024)
+    ones = torch.ones((Q, 32), dtype=torch.int32, device=cuda_dev)
+    want = ref.posting_scan_topk(q, tiles, valid & pvis[:, None], ones,
+                                 probe, 1024)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
 def test_card_topk_kernels_refuse_k_past_the_cap(cuda_dev):
-    """The block-wide selection takes k up to 1024
+    """The wide paths' selection takes k up to 1024
     (``TOPK_BLOCK_MAX_K``); past it the kernels raise, on the card only."""
     x = _wide_inputs(cuda_dev, M=1100, G=40, C=33, P=32)
     G = x["tiles"].shape[0]
