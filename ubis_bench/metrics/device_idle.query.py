@@ -1,0 +1,6 @@
+"""device_idle.query: the share of the traced window in which no
+operation ran on the card (the query cells)."""
+
+
+def read(run):
+    return None if run.trace is None else run.trace.idle_pct()
