@@ -32,6 +32,7 @@ import torch
 
 from ..kernels import ops
 from ..kernels.ref import BIG
+from ..obs import span
 from ..quant import pq
 from . import version_manager as vm
 from .types import (KIND_COMPACT, KIND_MERGE, KIND_NONE, KIND_SPLIT, NO_ID,
@@ -707,15 +708,16 @@ def background_round(state: IndexState, cfg: UBISConfig, kinds, pids,
     masks = state.slot_valid[safe]                       # (B, C)
 
     # ---- split planning (a host branch: the JAX package's lax.cond) ----
-    if bool(split_exec.any()):
-        (members_a, members_b, move_out, best_other, cent_a,
-         cent_b) = _plan_splits(state, cfg, tiles, masks, split_exec,
-                                normal0, retiring)
-    else:
-        members_a = members_b = move_out = torch.zeros_like(masks)
-        best_other = torch.zeros((B, C), dtype=torch.int64, device=dev)
-        cent_a = cent_b = torch.zeros((B, d), dtype=torch.float32,
-                                      device=dev)
+    with span("ubis.bg.split"):
+        if bool(split_exec.any()):
+            (members_a, members_b, move_out, best_other, cent_a,
+             cent_b) = _plan_splits(state, cfg, tiles, masks, split_exec,
+                                    normal0, retiring)
+        else:
+            members_a = members_b = move_out = torch.zeros_like(masks)
+            best_other = torch.zeros((B, C), dtype=torch.int64, device=dev)
+            cent_a = cent_b = torch.zeros((B, d), dtype=torch.float32,
+                                          device=dev)
     b_empty = ~members_b.any(-1) & split_exec
 
     # ---- merge tile construction --------------------------------------
@@ -856,8 +858,9 @@ def background_round(state: IndexState, cfg: UBISConfig, kinds, pids,
     r_pid = torch.cat([torch.where(split_exec, pa, -1),
                        torch.where(split_exec & ~b_empty, pb, -1),
                        torch.where(merge_exec, pa, -1)])
-    if reassign and bool((r_pid >= 0).any()):
-        state, n_re = _reassign(state, cfg, r_pid)
+    with span("ubis.bg.reassign"):
+        if reassign and bool((r_pid >= 0).any()):
+            state, n_re = _reassign(state, cfg, r_pid)
 
     rr = BackgroundRound(
         executed=exec_.sum(), n_split=split_exec.sum(),

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..api.types import SearchResult, TickReport, UpdateResult
-from ..obs import Obs
+from ..obs import Obs, span
 from ..quant import pq
 from . import balance, search as search_mod, tier as tier_mod, update
 from . import version_manager as vm
@@ -217,31 +217,35 @@ class UBISDriver:
             pv, pi, ph = pending
             rej_v, rej_i, rej_h = [], [], []
             for off in range(0, len(pi), J):
-                cv, ci, ch = pv[off:off + J], pi[off:off + J], ph[off:off + J]
-                pad = J - len(ci)
-                valid = np.concatenate([np.ones(len(ci), bool),
-                                        np.zeros(pad, bool)])
-                cv = np.concatenate([cv, np.zeros((pad, self.cfg.dim),
-                                                  np.float32)])
-                ci = np.concatenate([ci, np.zeros(pad, np.int32)])
-                ch = np.concatenate([ch, np.full(pad, -1, np.int32)])
-                self.state, res, _touched = update.insert_round(
-                    self.state, self.cfg, self._dev(cv), self._dev(ci),
-                    self._dev(valid), self._dev(ch))
-                flags = torch.stack([res.accepted, res.cached,
-                                     res.rejected]).cpu().numpy()
-                acc, cac, rej = flags
+                with span("ubis.insert.round"):
+                    cv, ci, ch = (pv[off:off + J], pi[off:off + J],
+                                  ph[off:off + J])
+                    pad = J - len(ci)
+                    valid = np.concatenate([np.ones(len(ci), bool),
+                                            np.zeros(pad, bool)])
+                    cv = np.concatenate([cv, np.zeros((pad, self.cfg.dim),
+                                                      np.float32)])
+                    ci = np.concatenate([ci, np.zeros(pad, np.int32)])
+                    ch = np.concatenate([ch, np.full(pad, -1, np.int32)])
+                    self.state, res, _touched = update.insert_round(
+                        self.state, self.cfg, self._dev(cv), self._dev(ci),
+                        self._dev(valid), self._dev(ch))
+                    with span("ubis.insert.readback"):
+                        acc, cac, rej = torch.stack(
+                            [res.accepted, res.cached,
+                             res.rejected]).cpu().numpy()
+                        if self.tier is not None:   # appends heat their target
+                            self.tier.note_targets(
+                                res.target.cpu().numpy()[acc])
+                        if not self.cfg.is_ubis:
+                            self._note_spfresh_overflow(
+                                res.target.cpu().numpy()[acc])
                 n_acc += int(acc.sum())
                 n_cache += int(cac.sum())
-                if self.tier is not None:       # appends heat their target
-                    self.tier.note_targets(res.target.cpu().numpy()[acc])
                 if rej.any():
                     rej_v.append(cv[rej])
                     rej_i.append(ci[rej])
                     rej_h.append(np.full(int(rej.sum()), -1, np.int32))
-                if not self.cfg.is_ubis:
-                    self._note_spfresh_overflow(
-                        res.target.cpu().numpy()[acc])
             if not rej_v:
                 pending = None
                 break
@@ -267,15 +271,16 @@ class UBISDriver:
         J = self.round_size
         n_done = n_blocked = 0
         for off in range(0, len(ids), J):
-            ci = ids[off:off + J]
-            pad = J - len(ci)
-            valid = np.concatenate([np.ones(len(ci), bool),
-                                    np.zeros(pad, bool)])
-            ci = np.concatenate([ci, np.zeros(pad, np.int32)])
-            self.state, done, blocked = update.delete_round(
-                self.state, self.cfg, self._dev(ci), self._dev(valid))
-            n_done_b, n_blocked_b = torch.stack(
-                [done.sum(), blocked.sum()]).tolist()
+            with span("ubis.delete.round"):
+                ci = ids[off:off + J]
+                pad = J - len(ci)
+                valid = np.concatenate([np.ones(len(ci), bool),
+                                        np.zeros(pad, bool)])
+                ci = np.concatenate([ci, np.zeros(pad, np.int32)])
+                self.state, done, blocked = update.delete_round(
+                    self.state, self.cfg, self._dev(ci), self._dev(valid))
+                n_done_b, n_blocked_b = torch.stack(
+                    [done.sum(), blocked.sum()]).tolist()
             n_done += n_done_b
             n_blocked += n_blocked_b
         self._sync()
@@ -314,16 +319,19 @@ class UBISDriver:
         return disp
 
     def collect_search(self, disp: SearchDispatch) -> SearchResult:
-        found = disp.found.cpu().numpy()
-        scores = disp.scores.cpu().numpy()
-        probe = disp.probe.cpu().numpy()
+        with span("ubis.search.readback"):
+            found = disp.found.cpu().numpy()
+            scores = disp.scores.cpu().numpy()
+            probe = disp.probe.cpu().numpy()
+            if self.tier is not None:
+                loc = disp.loc.cpu().numpy()
+                spilled = disp.spilled.cpu().numpy()
         if self.tier is not None:
             # probes are the search-heat signal (promote trigger); spilled
             # candidates get their exact score from the host pool
             self.tier.note_probes(probe)
             found, scores, n_sp = self.tier.rerank(
-                disp.queries, found, scores, disp.loc.cpu().numpy(),
-                disp.spilled.cpu().numpy())
+                disp.queries, found, scores, loc, spilled)
             self.stats["search_spilled_hits"] += n_sp
             found, scores = found[:, :disp.k], scores[:, :disp.k]
         dt = time.perf_counter() - disp.t0
@@ -350,9 +358,10 @@ class UBISDriver:
         planner."""
         if self._profile_dir and not self._profiled:
             self._profiled = True
-            with self.obs.profile(self._profile_dir):
+            with self.obs.profile(self._profile_dir), span("ubis.tick"):
                 return self._tick_impl()
-        return self._tick_impl()
+        with span("ubis.tick"):
+            return self._tick_impl()
 
     def _tick_impl(self) -> TickReport:
         t0 = time.perf_counter()
@@ -363,20 +372,27 @@ class UBISDriver:
             # known now (the batch was marked last tick)
             will_decay = (self._marked_dev is not None if self.fused_tick
                           else bool(self._marked))
-            self.state, plan = self.tier.dispatch(self.state,
-                                                  decayed=will_decay)
-        executed = self._execute_marked()
+            with span("ubis.tick.tier"):
+                self.state, plan = self.tier.dispatch(self.state,
+                                                      decayed=will_decay)
+        with span("ubis.tick.exec"):
+            executed = self._execute_marked()
         self.stats["bg_exec_time"] += time.perf_counter() - t0
-        drained = self._drain_cache() if self.cfg.is_ubis else 0
-        marked = self._mark_candidates()
-        reclaimed = self._gc()
-        retrained = self._pq_retrain()
-        if self.tier is not None and self.tier_async:
-            self.state, spilled, promoted = self.tier.reconcile(self.state,
-                                                                plan)
-            self._note_tier(spilled, promoted)
-        else:
-            spilled, promoted = self._tier_step()
+        with span("ubis.tick.drain"):
+            drained = self._drain_cache() if self.cfg.is_ubis else 0
+        with span("ubis.tick.mark"):
+            marked = self._mark_candidates()
+        with span("ubis.tick.gc"):
+            reclaimed = self._gc()
+        with span("ubis.tick.pq_retrain"):
+            retrained = self._pq_retrain()
+        with span("ubis.tick.tier"):
+            if self.tier is not None and self.tier_async:
+                self.state, spilled, promoted = self.tier.reconcile(
+                    self.state, plan)
+                self._note_tier(spilled, promoted)
+            else:
+                spilled, promoted = self._tier_step()
         dt = time.perf_counter() - t0
         self.stats["bg_time"] += dt
         self.stats["bg_ops"] += executed
@@ -430,7 +446,8 @@ class UBISDriver:
             self.state, self.cfg, kinds, pids,
             reassign=self.reassign_after_split)
         self._bg_ran = True        # the round carried the heat decay
-        rr = rr.to_host()
+        with span("ubis.tick.exec.readback"):
+            rr = rr.to_host()
         self.stats["bg_split"] += rr["n_split"]
         self.stats["bg_merge"] += rr["n_merge"]
         self.stats["bg_compact"] += rr["n_compact"]

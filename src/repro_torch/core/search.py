@@ -16,6 +16,7 @@ import torch
 
 from ..kernels import ops
 from ..kernels.ref import BIG, stable_topk
+from ..obs import span
 from ..quant import pq
 from . import version_manager as vm
 from .types import IndexState, UBISConfig
@@ -31,30 +32,35 @@ def search(state: IndexState, cfg: UBISConfig, queries: torch.Tensor,
     if nprobe is None:
         nprobe = cfg.nprobe
     queries = queries.to(torch.float32)
-    vis = vm.visible(state.rec_meta, state.allocated, state.global_version)
-    _, probe = ops.centroid_topk(queries, state.centroids, vis, k=nprobe)
+    with span("ubis.search.phase1"):
+        vis = vm.visible(state.rec_meta, state.allocated,
+                         state.global_version)
+        _, probe = ops.centroid_topk(queries, state.centroids, vis, k=nprobe)
 
-    if cfg.use_pq:
-        pscores, pids = _pq_stage(state, cfg, queries, probe, vis, k)
-    else:
-        C = state.vectors.shape[1]
-        kf = min(k, probe.shape[1] * C)
-        pscores, cand = ops.posting_scan_topk(
-            queries, state.vectors, state.slot_valid, vis, probe, k=kf)
-        pids = state.ids.reshape(-1)[cand.to(torch.int64)]
+    with span("ubis.search.phase2"):
+        if cfg.use_pq:
+            pscores, pids = _pq_stage(state, cfg, queries, probe, vis, k)
+        else:
+            C = state.vectors.shape[1]
+            kf = min(k, probe.shape[1] * C)
+            pscores, cand = ops.posting_scan_topk(
+                queries, state.vectors, state.slot_valid, vis, probe, k=kf)
+            pids = state.ids.reshape(-1)[cand.to(torch.int64)]
 
-    kc = min(k, cfg.cache_capacity)
-    cscores, cpos = ops.centroid_topk(queries, state.cache_vecs,
-                                      state.cache_valid, k=kc)
-    cids = state.cache_ids[cpos.to(torch.int64)]
+    with span("ubis.search.cache"):
+        kc = min(k, cfg.cache_capacity)
+        cscores, cpos = ops.centroid_topk(queries, state.cache_vecs,
+                                          state.cache_valid, k=kc)
+        cids = state.cache_ids[cpos.to(torch.int64)]
 
     # final merge over the two already-selected lists (kf + kc entries);
     # both keep the position-major tie order of a one-shot top-k
-    all_scores = torch.cat([pscores, cscores], dim=1)
-    all_ids = torch.cat([pids, cids], dim=1)
-    scores, idx = stable_topk(all_scores, k)
-    found = torch.gather(all_ids, 1, idx)
-    found = torch.where(scores < BIG / 2, found, -1)
+    with span("ubis.search.merge"):
+        all_scores = torch.cat([pscores, cscores], dim=1)
+        all_ids = torch.cat([pids, cids], dim=1)
+        scores, idx = stable_topk(all_scores, k)
+        found = torch.gather(all_ids, 1, idx)
+        found = torch.where(scores < BIG / 2, found, -1)
     return found, scores, probe
 
 

@@ -10,7 +10,7 @@ Each kernel wrapper counts its launches in a plain int
 (:func:`launch_counts`), so a run can show that its path went through
 the kernels.  The JAX package's trace-time fallback plane
 (``repro/kernels/ops.py:42-135``) has no counterpart: nothing here can
-fall back, so the ``kernel_fallback*`` counters read 0 (``obs.Obs``).
+fall back.
 """
 from __future__ import annotations
 

@@ -10,22 +10,23 @@ Counterpart of ``repro/obs/``:
   planner with its reason;
 * :class:`~repro_torch.obs.probe.RecallProbe`, the sampled live-recall
   probe (built by the serving engine through :meth:`Obs.make_probe`);
-* :meth:`Obs.profile`, a ``torch.profiler`` capture of a block.
+* :meth:`Obs.profile`, a ``torch.profiler`` capture of a block;
+* :func:`span`, the program's named spans (``ubis.*``) in a profiler's
+  trace.
 
 A driver builds its own ``Obs()`` unless one is injected; the serving
 engine reuses its index's, so one exposition covers driver internals and
 request spans.  ``Obs(enabled=False)`` keeps the stats mapping (the
-drivers need it) and turns tracing and span recording into no-ops.  The
-``kernel_fallback`` and ``kernel_fallback_traces`` counters exist and
-read 0: on the card every kernel launches or raises, and nothing falls
-back.
+drivers need it) and turns tracing and span recording into no-ops.
 """
 from __future__ import annotations
 
 import os
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Callable, List, Optional
+
+from torch.autograd import profiler as _profiler
 
 from .metrics import (DRIVER_STAT_SCHEMA, GAUGE_STAT_KEYS, Counter, Gauge,
                       Histogram, MetricsRegistry, StatsMap, parse_exposition,
@@ -35,10 +36,23 @@ from .trace import Tracer
 
 __all__ = ["Obs", "MetricsRegistry", "Tracer", "RecallProbe", "Counter",
            "Gauge", "Histogram", "StatsMap", "DRIVER_STAT_SCHEMA",
-           "GAUGE_STAT_KEYS", "parse_exposition", "required_series"]
+           "GAUGE_STAT_KEYS", "parse_exposition", "required_series",
+           "span"]
 
-#: Counters every ``Obs`` registers at construction.
-FALLBACK_COUNTERS = ("kernel_fallback", "kernel_fallback_traces")
+_NO_SPAN = nullcontext()
+
+
+def span(name: str):
+    """A named host span in ``torch.profiler``'s trace: a
+    ``record_function(name)`` while a profiler records, else one shared
+    context that does nothing.  Off, a span costs one flag read (a bare
+    ``record_function`` costs microseconds even with no profiler).  On,
+    it adds no synchronisation and no host read: each launch's
+    correlation id ties a device operation to the innermost span that
+    issued it.  The program's spans are named ``ubis.*``."""
+    if _profiler._is_profiler_enabled:
+        return _profiler.record_function(name)
+    return _NO_SPAN
 
 
 class Obs:
@@ -53,8 +67,6 @@ class Obs:
         self.tracer = Tracer(capacity=trace_capacity, path=trace_path,
                              clock=clock, enabled=enabled)
         self._profiles = 0
-        for name in FALLBACK_COUNTERS:
-            self.counter(name)
 
     def driver_stats(self, prefix: str = "index") -> StatsMap:
         """The shared-schema ``stats`` map of a driver, exported under
